@@ -34,6 +34,11 @@ ALPHABET = "-ACDEFGHIKLMNPQRSTVWY"
 # H100 SXM published peaks (dense): HBM bytes/s, int8 tensor-core ops/s
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
+# cycles of one dependent float32 FMA (K4's chain) on Hopper
+FMA_LATENCY_CYCLES = 4
+# K4 serial chain latencies of the parity fit below before its dots were
+# batched (74 launches)
+PARITY_CHAINS_UNBATCHED = 74
 
 # golden-fit gate of the repository (tests/test_golden_regression.py)
 RTOL, ATOL = 1e-4, 1e-5
@@ -186,12 +191,15 @@ def main():
     rows = {}
 
     # ---- phase 2: K1 against its plain version, counts exactly equal, at
-    # the timed shape, the main path's shape (phase 5) and a ragged one
-    for n, L, timed in ((32768, 160, True), (16385, 160, False),
-                        (1000, 37, False)):
+    # the timed shapes (N=32768, and the main path's N=16385 of phase 5),
+    # a ragged one, and odd L with ragged n and all -1 rows
+    for n, L, timed in ((32768, 160, True), (16385, 160, True),
+                        (1000, 37, False), (777, 53, False)):
         codes_np = synthetic_codes(rng, n, L, 21, families=max(8, n // 64),
                                    mutate=0.08, gap_rows=0.2,
                                    missing_rows=0.05)
+        if n == 777:
+            codes_np[[0, 400, 776]] = -1
         codes = torch.as_tensor(codes_np, device=dev)
         min_count = _identity_count_threshold(L, 0.8)
         got = k_reweight.neighbor_counts(codes, min_count)
@@ -204,20 +212,39 @@ def main():
             "{}".format(n, L, float(want.float().mean()), int(want.max())))
         if not timed:
             continue
-        ms = cuda_ms(lambda: k_reweight.neighbor_counts(codes, min_count), 5)
+        # the kernel alone (on rows padded as the wrapper pads them), and
+        # the wrapper's whole call (its host read of q, the padding)
+        q = int(codes.max()) + 1
+        padded = k_reweight.pad_codes(codes)
+        ms = cuda_ms(lambda: k_reweight.launch(padded, q, min_count), 10)
+        call_ms = cuda_ms(
+            lambda: k_reweight.neighbor_counts(codes, min_count), 10)
+        del padded
         with matmul_precision("highest"):
             plain_ms = cuda_ms(
                 lambda: _num_cluster_members_plain(codes, min_count), 2)
-        oh8 = (codes.long().unsqueeze(-1) == torch.arange(
+        # library yardstick: the (n, Lq) x (Lq, n) int8 identity GEMM alone
+        # (torch._int_mm wants a multiple of 8 rows: zero rows pad it)
+        n8 = -(-n // 8) * 8
+        oh8 = torch.zeros((n8, L * 21), dtype=torch.int8, device=dev)
+        oh8[:n] = (codes.long().unsqueeze(-1) == torch.arange(
             21, device=dev)).to(torch.int8).reshape(n, L * 21)
         lib_ms = cuda_ms(lambda: torch._int_mm(oh8, oh8.T), 3)
         del oh8
-        ops = 2.0 * n * n * L * 21
-        bound = max(ops / INT8_TC_OPS_PER_S, n * L / HBM_BYTES_PER_S) * 1e3
-        log("phase 2 K1 N={} L={}: kernel {:.3f} ms, plain {:.3f} ms, "
-            "bound {:.3f} ms (int8 tensor-core identity GEMM, 2 N^2 L q "
-            "ops), library torch._int_mm identity GEMM alone {:.3f} "
-            "ms".format(n, L, ms, plain_ms, bound, lib_ms))
+        # least time for the function: the identity GEMM over the dense
+        # one-hot (depth L q), one triangle of the symmetric product; and
+        # the bound of K1's own layout (depth 32 per site and 32 symbols)
+        bound = n * (n + 1) * L * q / INT8_TC_OPS_PER_S * 1e3
+        layout_bound = (n * (n + 1) * L * 32 * (-(-q // 32))
+                        / INT8_TC_OPS_PER_S * 1e3)
+        log("phase 2 K1 N={} L={}: kernel {:.4f} ms (wrapper call {:.4f} "
+            "ms), plain {:.3f} ms, bound {:.4f} ms (N(N+1) L q int8 "
+            "tensor-core ops), K1 layout's bound {:.4f} ms (N(N+1) L 32 "
+            "ops), library torch._int_mm identity GEMM alone {:.4f} "
+            "ms".format(n, L, ms, call_ms, plain_ms, bound, layout_bound,
+                        lib_ms))
+        if n != 16385:
+            continue
         rows["K1"] = dict(
             name="K1 neighbor counts (reweighting)", route="cuda",
             source="evcouplings_torch/csrc/reweight.cu",
@@ -291,29 +318,49 @@ def main():
             bound_by="bytes", library_ms=None)
     del A, B, P, mu, nu, dJh, S
 
-    # ---- phase 3b: K4 against its host version, bitwise
+    # ---- phase 3b: K4 against its host version, bitwise: one batch of
+    # four pairs at the main path's D (one an odd-offset slice, as the
+    # engine's x[d:]), then n = 0, 1 and 4097
     d = lq * lq + lq
     x = torch.as_tensor(rng.normal(size=d).astype(np.float32), device=dev)
     y = torch.as_tensor(rng.normal(size=d).astype(np.float32), device=dev)
-    got = k_seqdot.sequential_dot(x, y)
-    xc, yc = x.cpu(), y.cpu()
-    want = k_seqdot._sequential_dot_plain(xc, yc)
-    assert float(got) == float(want), (float(got), float(want))
+    batch = ([x, x[3:], x, y], [y, y[:-3], x, y])
+    for xs, ys in (batch, ([x[:0], x[:1], x[5:4102]],
+                           [y[:0], y[1:2], y[:4097]])):
+        got = k_seqdot.sequential_dots(xs, ys)
+        for g, a, b in zip(got, xs, ys):
+            want = k_seqdot._sequential_dot_plain(a.cpu(), b.cpu())
+            assert float(g) == float(want), (a.numel(), float(g),
+                                             float(want))
     ms = cuda_ms(lambda: k_seqdot.sequential_dot(x, y), 3)
+    batch_ms = cuda_ms(lambda: k_seqdot.sequential_dots(*batch), 3)
+    xc, yc = x.cpu(), y.cpu()
     plain_ms = host_ms(lambda: k_seqdot._sequential_dot_plain(xc, yc), 3)
     lib_ms = cuda_ms(lambda: torch.dot(x, y), 20)
-    bound = 2 * 4 * d / HBM_BYTES_PER_S * 1e3
-    log("phase 3b K4 D={}: bitwise equal to the host chain, kernel {:.3f} "
-        "ms, host plain {:.3f} ms, torch.dot {:.4f} ms, bound {:.4f} "
-        "ms".format(d, ms, plain_ms, lib_ms, bound))
+    # least time of one chain: D dependent FMAs at their latency and the
+    # card's highest SM clock; the bytes figure (x and y read once) beside
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    bound = d * FMA_LATENCY_CYCLES / (max_sm_mhz * 1e6) * 1e3
+    bytes_bound = 2 * 4 * d / HBM_BYTES_PER_S * 1e3
+    log("phase 3b K4 D={}: sequential_dots bitwise equal to the host chain "
+        "(batch of 4 incl. an odd offset; n = 0, 1, 4097), one chain {:.3f} "
+        "ms, batch of 4 {:.3f} ms, host plain {:.3f} ms, torch.dot {:.4f} "
+        "ms, latency bound {:.3f} ms ({} cycles per FMA at {:.0f} MHz), "
+        "bytes bound {:.4f} ms".format(
+            d, ms, batch_ms, plain_ms, lib_ms, bound, FMA_LATENCY_CYCLES,
+            max_sm_mhz, bytes_bound))
     rows["K4"] = dict(
         name="K4 sequential float32 dot (parity-mode LBFGS)", route="cuda",
         source="evcouplings_torch/csrc/seqdot.cu",
         replaces="evcouplings_tpu/ops/lbfgs.py:98 (jnp.dot, no Pallas "
                  "kernel)",
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by="bytes", library_ms=lib_ms)
-    del x, y
+        bound_by="latency", library_ms=lib_ms, batch4_ms=batch_ms,
+        bytes_bound_ms=bytes_bound)
+    del x, y, xc, yc, batch
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
 
@@ -404,10 +451,11 @@ def main():
     write_a2m(a2m, codes_np)
     common = dict(focus_seq="TARGET/1-160", theta=0.8, lambda_h=0.01,
                   lambda_J=0.01 * 20 * 159)
-    for counter in (k_reweight.neighbor_counts, k_seqdot.sequential_dot,
+    for counter in (k_reweight.neighbor_counts, k_seqdot.sequential_dots,
                     k_adam.fused_adam_update_cuda,
                     k_adam.fused_adam_update_presym_cuda):
         counter.launches = 0
+    k_seqdot.sequential_dots.chains = 0
     modes = (
         ("parity", dict(iterations=5, solver="lbfgs",
                         compute_dtype="float32",
@@ -437,15 +485,51 @@ def main():
                 mode, res.num_valid_seqs, L, len(fx), secs,
                 res.num_valid_seqs * L * len(fx) / secs, fx[0], fx[-1],
                 res.optimization_status))
+        if mode == "parity":
+            serial = k_seqdot.sequential_dots.launches
+            log("phase 5 parity: {} K4 launches (serial chain latencies) "
+                "for {} chains; {} before batching".format(
+                    serial, k_seqdot.sequential_dots.chains,
+                    PARITY_CHAINS_UNBATCHED))
+            assert 0 < serial < PARITY_CHAINS_UNBATCHED, serial
     launches = {
         "K1": k_reweight.neighbor_counts.launches,
         "K2": k_adam.fused_adam_update_cuda.launches,
         "K3": k_adam.fused_adam_update_presym_cuda.launches,
-        "K4": k_seqdot.sequential_dot.launches,
+        "K4": k_seqdot.sequential_dots.launches,
     }
     log("phase 5 launches on the main path:", json.dumps(launches))
     for k in ("K1", "K2", "K4"):
         assert launches[k] > 0, (k, launches)
+
+    # ---- phase 5b: where the time goes: one more fit of each mode under
+    # torch.profiler; device time by kernel and the device's busy share of
+    # the wall time (kernels, copies and fills on the one stream)
+    from torch.profiler import ProfilerActivity, profile
+
+    for mode, kw in modes:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run_plm(a2m, os.path.join(tmp, mode + "_prof_ECs.txt"),
+                    os.path.join(tmp, mode + "_prof.model"), **common, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        kern = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count,
+                 e.key) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")]
+        busy = sum(ms for ms, _, _ in kern)
+        if busy == 0:
+            log("phase 5b {}: the profiler shows no device time (not "
+                "measured)".format(mode))
+            continue
+        top = sorted(kern, reverse=True)[:6]
+        log("phase 5b {} under the profiler: wall {:.3f} s, device busy "
+            "{:.3f} s ({:.1%}); top device time: {}".format(
+                mode, wall, busy / 1e3, busy / 1e3 / wall, "; ".join(
+                    "{} x{} {:.1f} ms".format(k[:60], c, ms)
+                    for ms, c, k in top)))
 
     # per-step time of the production Adam step, fused epilogue on vs off
     # (two fits each, alternating; steps 5..19 of each fit)

@@ -5,6 +5,11 @@ evcouplings_tpu/ops/weights_pallas.py::_reweight_kernel.
 
 ops/weights.py routes CUDA tensors here; its plain PyTorch version
 (_num_cluster_members_plain) computes the same counts for CPU tensors.
+The kernel takes the identity counts as an int8 one-hot product on the
+tensor cores; the wrapper reads the number of symbols q = max code + 1
+from the codes (one host read per call), which sets the one-hot's depth
+(one 32-byte slab per site and per 32 symbols), and pads the rows with -1
+(matches nothing) to a multiple of 32 sites, the kernel's register load.
 """
 
 import ctypes
@@ -14,12 +19,46 @@ import torch
 from evcouplings_torch.kernels import _build
 
 SOURCE = "reweight"
+# sites per register load of the kernel (kChunk in csrc/reweight.cu): rows
+# are padded to a multiple of it
+_CHUNK = 32
 _SYMBOLS = {
     "evc_neighbor_counts": [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ],
 }
+
+
+def pad_codes(codes):
+    """(n, L) int8 CUDA codes -> (n, Lp) with Lp a multiple of 32 sites,
+    padded with -1 (matches nothing): the layout K1 reads."""
+    n, L = codes.shape
+    padded = torch.full((n, -(-L // _CHUNK) * _CHUNK), -1, dtype=torch.int8,
+                        device=codes.device)
+    padded[:, :L] = codes
+    return padded
+
+
+def launch(padded, q, min_count):
+    """Launch K1 on codes laid out by pad_codes, with q symbols; returns
+    (n,) int32 counts (no host synchronisation)."""
+    n, lp = padded.shape
+    if not (padded.is_cuda and padded.dtype == torch.int8
+            and padded.is_contiguous() and lp % _CHUNK == 0):
+        raise ValueError("launch takes int8 CUDA codes laid out by "
+                         "pad_codes")
+    lib = _build.load(SOURCE, _SYMBOLS)
+    counts = torch.zeros(n, dtype=torch.int32, device=padded.device)
+    with torch.cuda.device(padded.device):
+        err = lib.evc_neighbor_counts(
+            ctypes.c_void_p(padded.data_ptr()), n, lp, max(q, 0),
+            int(min_count), ctypes.c_void_p(counts.data_ptr()),
+            _build.stream_of(padded),
+        )
+    _build.check_launch(lib, err, "evc_neighbor_counts")
+    neighbor_counts.launches += 1
+    return counts
 
 
 def neighbor_counts(codes, min_count):
@@ -44,18 +83,12 @@ def neighbor_counts(codes, min_count):
     n, L = codes.shape
     if n == 0 or L == 0:
         raise ValueError("codes must be non-empty, got {}".format((n, L)))
-    if -(-n // 64) > 65535:
-        raise ValueError("at most 65535 * 64 rows, got {}".format(n))
-    lib = _build.load(SOURCE, _SYMBOLS)
-    counts = torch.zeros(n, dtype=torch.int32, device=codes.device)
-    with torch.cuda.device(codes.device):
-        err = lib.evc_neighbor_counts(
-            ctypes.c_void_p(codes.data_ptr()), n, L, int(min_count),
-            ctypes.c_void_p(counts.data_ptr()), _build.stream_of(codes),
-        )
-    _build.check_launch(lib, err, "evc_neighbor_counts")
-    neighbor_counts.launches += 1
-    return counts
+    q = int(codes.max()) + 1
+    if q > 127:
+        raise ValueError("at most 127 symbols (codes up to 126), got a "
+                         "code of {}".format(q - 1))
+    return launch(pad_codes(codes), q, min_count)
 
 
+# launches of K1 (by launch(), which neighbor_counts calls)
 neighbor_counts.launches = 0

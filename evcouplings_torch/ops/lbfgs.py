@@ -80,7 +80,8 @@ def _two_loop_direction(state, dot):
 
 
 def make_lbfgs_chunk(vg, *, m=5, steps_per_call=1, max_ls=_MAX_LS,
-                     conv_tol=1e-5, norm_split=None, dot=torch.dot):
+                     conv_tol=1e-5, norm_split=None, dot=torch.dot,
+                     dots=None):
     """Build chunk(x, state, *extra) -> (x, state, metrics).
 
     vg : (x (D,), *extra) -> (value 0-d tensor, grad (D,)).
@@ -92,9 +93,18 @@ def make_lbfgs_chunk(vg, *, m=5, steps_per_call=1, max_ls=_MAX_LS,
     dot : the vector dot product of every scalar the engine takes
         (torch.dot, or kernels.seqdot.sequential_dot to reproduce the
         JAX engine's CPU rounding in parity mode).
+    dots : (xs, ys) -> [dot(x, y) for each pair], the same products taken
+        as one batch of independent dots (kernels.seqdot.sequential_dots:
+        one launch); None takes them one at a time with `dot`. The engine
+        batches the dots that do not depend on each other: s.y with y.y,
+        and ||g|| with ||x|| (and the two split norms). Each dot of a
+        batch gives the bits `dot` gives, so batching changes no result.
 
     Convergence uses the libLBFGS rule ||g|| <= tol * max(1, ||x||);
     once it trips, remaining steps of the chunk pass through unchanged.
+    A chunk leaves ||g|| and ||x|| of the x it returns in
+    state["norms"], and the next chunk starts from them: call it with
+    that x.
     """
     del m  # the history length is carried by the state
 
@@ -155,7 +165,9 @@ def make_lbfgs_chunk(vg, *, m=5, steps_per_call=1, max_ls=_MAX_LS,
         x_new = x + t * d
         s = t * d
         y = grad_t - grad0
-        sy = dot(s, y)
+        # y.y is taken beside s.y (one batch) and unused when the history
+        # update is skipped
+        sy, yy = dots([s, y], [y, y])
         new_state = dict(state)
         if ok and bool(sy > _MIN_CURVATURE):
             # chronological roll: drop the oldest pair, append the new
@@ -164,7 +176,7 @@ def make_lbfgs_chunk(vg, *, m=5, steps_per_call=1, max_ls=_MAX_LS,
             new_state["rho"] = state["rho"][1:] + [
                 (1.0 / torch.clamp(sy, min=_MIN_CURVATURE)).to(f)]
             new_state["gamma"] = (
-                sy / torch.clamp(dot(y, y), min=1e-30)).to(f)
+                sy / torch.clamp(yy, min=1e-30)).to(f)
         new_state["count"] = state["count"] + int(ok)
         new_state["nevals"] = state["nevals"] + n_ls
         new_state["value"] = value_t.to(f)
@@ -172,15 +184,27 @@ def make_lbfgs_chunk(vg, *, m=5, steps_per_call=1, max_ls=_MAX_LS,
         new_state["ls_failed"] = state["ls_failed"] or not ok
         return x_new, new_state
 
-    def _norms(x, state):
-        return (torch.sqrt(dot(state["grad"], state["grad"])),
-                torch.sqrt(dot(x, x)))
+    if dots is None:
+        def dots(xs, ys):
+            return [dot(a, b) for a, b in zip(xs, ys)]
+
+    def _norms(x, state, split=False):
+        """[||g||, ||x||] (+ [||x[d:]||, ||x[:d]||] with split), one batch."""
+        vs = [state["grad"], x]
+        if split:
+            vs += [x[norm_split:], x[:norm_split]]
+        return [torch.sqrt(v) for v in dots(vs, vs)]
 
     def _converged(gnorm, xnorm):
         return bool(gnorm <= conv_tol * torch.clamp(xnorm, min=1.0))
 
     def chunk(x, state, *extra):
-        gnorm, xnorm = _norms(x, state)
+        # the previous chunk left the norms of this (x, grad) in the
+        # state: the same inputs, so the same bits
+        if "norms" in state:
+            gnorm, xnorm = state["norms"]
+        else:
+            gnorm, xnorm = _norms(x, state)
         recs = []
         for _ in range(steps_per_call):
             if _converged(gnorm, xnorm):
@@ -191,17 +215,15 @@ def make_lbfgs_chunk(vg, *, m=5, steps_per_call=1, max_ls=_MAX_LS,
             # pass-through it repeats the current point. Convergence is
             # folded at the post-step iterate too, so a chunk whose last
             # step converges reports it.
-            gnorm, xnorm = _norms(x, state)
+            norms = _norms(x, state, split=norm_split is not None)
+            gnorm, xnorm = norms[:2]
             if _converged(gnorm, xnorm):
                 state = dict(state, converged=True)
             cols = [state["value"], gnorm, xnorm,
                     torch.tensor(float(state["ls_failed"]),
-                                 device=x.device)]
-            if norm_split is not None:
-                h, J = x[norm_split:], x[:norm_split]
-                cols.append(torch.sqrt(dot(h, h)))
-                cols.append(torch.sqrt(dot(J, J)))
+                                 device=x.device)] + norms[2:]
             recs.append(torch.stack([c.float() for c in cols]))
+        state = dict(state, norms=(gnorm, xnorm))
         return x, state, torch.stack(recs)
 
     return chunk

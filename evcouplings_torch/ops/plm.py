@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from evcouplings_torch._device import matmul_precision, resolve_device
-from evcouplings_torch.kernels.seqdot import sequential_dot
+from evcouplings_torch.kernels.seqdot import sequential_dot, sequential_dots
 from evcouplings_torch.ops.encode import one_hot, pad_rows, unflatten_J
 from evcouplings_torch.ops.lbfgs import init_lbfgs_state, make_lbfgs_chunk
 from evcouplings_torch.ops.plm_update import (
@@ -448,15 +448,17 @@ def _resolve_fused_update(cfg, mesh, master_dtype):
     return False
 
 
-def _lbfgs_dot(compute_dtype, precision):
-    """The LBFGS engine's dot product. Parity mode (float32, precision
-    "highest") takes every dot as one fused multiply-add chain in index
-    order (K4 on the card), the arithmetic of the JAX engine on the CPU:
+def _lbfgs_dots(compute_dtype, precision):
+    """The LBFGS engine's dot product and its batch of independent dots,
+    (dot, dots). Parity mode (float32, precision "highest") takes every
+    dot as one fused multiply-add chain in index order (K4 on the card,
+    a batch in one launch), the arithmetic of the JAX engine on the CPU:
     the 40-iteration golden fit moves by ~1e-3 under any other summation
-    order. Every other mode uses torch.dot."""
+    order. Every other mode uses torch.dot (dots None: the engine takes
+    a batch as torch.dots one after another)."""
     if compute_dtype == torch.float32 and precision.startswith("highest"):
-        return sequential_dot
-    return torch.dot
+        return sequential_dot, sequential_dots
+    return torch.dot, None
 
 
 def _tree_norm(params):
@@ -653,10 +655,11 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
                 return value.to(dtype), torch.cat(
                     [grads["J"].reshape(-1), grads["h"].reshape(-1)])
 
+            dot, dots = _lbfgs_dots(compute_dtype, cfg.precision)
             lb_chunk = make_lbfgs_chunk(
                 vg_flat, m=cfg.memory_size, steps_per_call=steps_per_call,
                 conv_tol=cfg.conv_tol, norm_split=dsize,
-                dot=_lbfgs_dot(compute_dtype, cfg.precision))
+                dot=dot, dots=dots)
             x0 = torch.cat([params["J"].reshape(-1),
                             params["h"].reshape(-1)])
             value0, grad0 = vg_flat(x0, codes_d, w_d, oh_d)

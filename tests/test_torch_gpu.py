@@ -78,3 +78,79 @@ def test_k4_bitwise_equals_host(cuda):
     y = torch.as_tensor(rng.normal(size=100003).astype(np.float32))
     got = sequential_dot(x.to(cuda), y.to(cuda))
     assert float(got) == float(_sequential_dot_plain(x, y))
+
+
+def test_k4_batch_bitwise_equals_host(cuda):
+    from evcouplings_torch.kernels import seqdot
+
+    rng = np.random.default_rng(3)
+    v = torch.as_tensor(rng.normal(size=300001).astype(np.float32))
+    w = torch.as_tensor(rng.normal(size=300001).astype(np.float32))
+    nan = v[:5000].clone()
+    nan[4321] = float("nan")
+    # odd offsets (4-byte aligned only), x and y misaligned differently,
+    # n = 0, 1, 4097 and smaller than one stage, NaN propagation
+    pairs = [(v[3:], w[:-3]), (v[1:4098], w[2:4099]), (v[:0], w[:0]),
+             (v[7:8], w[9:10]), (v[:4097], w[:4097]), (v, w),
+             (nan, w[:5000]), (v[:17], v[:17])]
+    before = (seqdot.sequential_dots.launches, seqdot.sequential_dots.chains)
+    got = seqdot.sequential_dots([x.to(cuda) for x, _ in pairs],
+                                 [y.to(cuda) for _, y in pairs])
+    assert (seqdot.sequential_dots.launches - before[0],
+            seqdot.sequential_dots.chains - before[1]) == (1, len(pairs))
+    for g, (x, y) in zip(got, pairs):
+        want = float(seqdot._sequential_dot_plain(x, y))
+        g = float(g)
+        assert g == want or (np.isnan(g) and np.isnan(want)), (g, want)
+    assert float(got[2]) == 0.0 and np.isnan(float(got[6]))
+
+
+def _k1_check(cuda, m, theta):
+    from evcouplings_torch.kernels.reweight import neighbor_counts
+    from evcouplings_torch.ops.weights import (
+        _identity_count_threshold, _num_cluster_members_plain,
+    )
+
+    codes = torch.as_tensor(np.asarray(m).astype(np.int8), device=cuda)
+    k = _identity_count_threshold(codes.shape[1], theta)
+    got = neighbor_counts(codes, k)
+    want = _num_cluster_members_plain(codes, k)
+    assert torch.equal(got, want), int((got != want).sum())
+    return got
+
+
+@pytest.mark.parametrize("n,L", [(5, 3), (127, 37), (129, 161), (300, 1)])
+def test_k1_ragged_and_all_missing_rows(cuda, n, L):
+    # n below one 128-row tile, on either side of a tile edge, odd L; an
+    # all -1 row counts nothing (not even itself) unless min_count is 0
+    rng = np.random.default_rng(n + L)
+    m = rng.integers(0, 21, size=(n, L))
+    m[1::4] = m[0]
+    m[n // 2] = -1
+    m[n - 1] = -1
+    got = _k1_check(cuda, m, 0.7)
+    assert int(got[n - 1]) == 0
+    got = _k1_check(cuda, m, 0.0)
+    assert int(got[n - 1]) == n
+
+
+@pytest.mark.parametrize("L,theta", [(20, 0.85), (40, 0.7), (37, 1.0)])
+def test_k1_threshold_on_a_k_over_L_boundary(cuda, L, theta):
+    # rows with exactly k identities to row 0 count, rows with k - 1 not
+    from evcouplings_torch.ops.weights import _identity_count_threshold
+
+    k = _identity_count_threshold(L, theta)
+    rows = [np.zeros(L, dtype=np.int64)]
+    for ident in (k, k - 1, k, k + 1):
+        if 0 <= ident <= L:
+            r = np.zeros(L, dtype=np.int64)
+            r[ident:] = 5
+            rows.append(r)
+    _k1_check(cuda, np.stack(rows * 40), theta)
+
+
+def test_k1_many_symbols(cuda):
+    # q > 32: two 32-symbol slabs per site
+    m = np.random.default_rng(1).integers(0, 45, size=(200, 30))
+    m[::3] = m[0]
+    _k1_check(cuda, m, 0.6)

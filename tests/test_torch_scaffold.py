@@ -95,7 +95,7 @@ def test_cpu_tensors_do_not_count_launches():
     )
     from evcouplings_torch.ops.weights import num_cluster_members
 
-    counters = (reweight.neighbor_counts, seqdot.sequential_dot,
+    counters = (reweight.neighbor_counts, seqdot.sequential_dots,
                 adam_update.fused_adam_update_cuda,
                 adam_update.fused_adam_update_presym_cuda)
     before = [c.launches for c in counters]
