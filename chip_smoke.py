@@ -6,12 +6,16 @@ Smoke run of the PyTorch/CUDA port (evcouplings_torch) on one NVIDIA GPU.
 
 Builds every kernel from the sources in this checkout, holds each kernel
 against its plain version on the card, reproduces the golden parity fit,
-then drives the port's main path, run_plm (the in-process plmc
-replacement), at the full width of the repository's headline shape
-(N=16384 sequences, L=160 sites, q=21) in parity and production mode.
-Every phase raises on a mismatch; nothing is caught. The last lines are a
-JSON object describing each kernel, the card's name and power limit as
-nvidia-smi reports them, and {"ok": true, "device": {...}}.
+then drives the port's main paths at the full width of the repository's
+headline shape (N=16384 sequences, L=160 sites, q=21): run_plm (the
+in-process plmc replacement) in parity and production mode (phase 5),
+and the pipeline a user runs, execute_wrapped with stages align and
+couplings, then the mutate protocol (phase 6; card against host at a
+small size first). Every phase raises on a mismatch; nothing is caught,
+except that a machine without matplotlib cannot draw the mutate stage's
+plots, which the script then names before its last lines. The last
+lines are a JSON object describing each kernel, the card's name and
+power limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when no CUDA device is available or the
 port's package is not beside this script. Imports nothing of JAX.
@@ -148,6 +152,125 @@ def max_rel_excess(got, want):
     got = np.asarray(got, dtype=np.float64)
     want = np.asarray(want, dtype=np.float64)
     return float(np.max(np.abs(got - want) / (ATOL + RTOL * np.abs(want))))
+
+
+def write_synthetic_a2m(path, N=150, L=18, seed=7):
+    """The repository's small synthetic focus alignment (the generator of
+    tests/test_protocols.py): random columns, three planted covarying
+    column pairs of graded strength, a few gaps."""
+    rng = np.random.default_rng(seed)
+    aa = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    mat = np.empty((N, L), dtype="U1")
+    for col in range(L):
+        probs = rng.dirichlet(np.ones(20) * 0.4)
+        mat[:, col] = rng.choice(aa, size=N, p=probs)
+    planted = [
+        ((2, 9), ("A", "W"), ("C", "Y"), 0.90),
+        ((4, 15), ("D", "R"), ("E", "K"), 0.78),
+        ((6, 12), ("F", "L"), ("H", "T"), 0.68),
+    ]
+    for (ci, cj), (si0, si1), (sj0, sj1), conc in planted:
+        state = rng.integers(0, 2, size=N)
+        follow = rng.random(N) < conc
+        partner = np.where(follow, state, 1 - state)
+        mat[:, ci] = np.where(state == 0, si0, si1)
+        mat[:, cj] = np.where(partner == 0, sj0, sj1)
+    gap_rows = rng.integers(1, N, size=10)
+    gap_cols = rng.integers(0, L, size=10)
+    mat[gap_rows, gap_cols] = "-"
+    with open(path, "w") as f:
+        f.write(">TARGET_SEQ/11-{}\n".format(11 + L - 1))
+        f.write("".join(mat[0]) + "\n")
+        for k in range(1, N):
+            f.write(">seq{}/1-{}\n{}\n".format(k, L, "".join(mat[k])))
+
+
+def plant_pairs(rng, codes, pairs, concordance=0.9):
+    """Overwrite each column pair (i, j) with a two-state covariation:
+    per row a random state picks one of two symbols at i, and j follows
+    it with the given concordance (independent of the rows' families)."""
+    n = len(codes)
+    for k, (i, j) in enumerate(pairs):
+        state = rng.integers(0, 2, size=n)
+        follow = rng.random(n) < concordance
+        partner = np.where(follow, state, 1 - state)
+        codes[:, i] = np.where(state == 0, 1 + k, 11 + k)
+        codes[:, j] = np.where(partner == 0, 2 + k, 12 + k)
+    return codes
+
+
+def pipeline_config(prefix, a2m, sequence_id, align_kw, couplings_kw,
+                    stages=("align", "couplings"), device=None):
+    """A protein_monomer job config (device None: the card)."""
+    glob = {"prefix": prefix, "sequence_id": sequence_id, "theta": 0.8}
+    if device is not None:
+        glob["device"] = device
+    return {
+        "pipeline": "protein_monomer", "stages": list(stages),
+        "global": glob,
+        "tools": {"jackhmmer": None, "hhfilter": None, "plmc": None},
+        "databases": {},
+        "align": {"protocol": "existing", "input_alignment": a2m,
+                  "first_index": None, "seqid_filter": None,
+                  "hhfilter": None, **align_kw},
+        "couplings": {"protocol": "standard", "frequencies_file": None,
+                      "focus_mode": True, "alphabet": None,
+                      "ignore_gaps": False, "lambda_h": 0.01,
+                      "lambda_J": 0.01, "lambda_group": None,
+                      "lambda_J_times_Lq": True, "scale_clusters": None,
+                      "cpu": None, **couplings_kw},
+        "mutate": {"protocol": "standard", "mutation_dataset_file": None},
+        "compare": {"protocol": "standard"},
+        "fold": {"protocol": "standard"},
+        "management": {},
+    }
+
+
+def run_mutate(model_file, prefix, not_produced):
+    """mutate `standard` on a fitted model; returns (outcfg, seconds).
+
+    Where matplotlib is not installed, the stage's plots (and the pymol
+    scripts, whose colors come from matplotlib) cannot be made: that
+    ModuleNotFoundError, and only it, is expected. The single-mutant
+    matrix, which needs no matplotlib, is then computed as the stage
+    computes it, and what was not produced is recorded in not_produced.
+    """
+    import importlib.util
+
+    from evcouplings_torch.couplings.model import CouplingsModel
+    from evcouplings_torch.mutate import protocol as mutate
+    from evcouplings_torch.mutate.calculations import (
+        predict_mutation_table, single_mutant_matrix,
+    )
+
+    t = time.perf_counter()
+    try:
+        out = mutate.run(protocol="standard", prefix=prefix,
+                         model_file=model_file, mutation_dataset_file=None)
+    except ModuleNotFoundError as e:
+        if (e.name != "matplotlib"
+                or importlib.util.find_spec("matplotlib") is not None):
+            raise
+        epistatic = CouplingsModel(model_file)
+        table = single_mutant_matrix(
+            epistatic, output_column="prediction_epistatic")
+        table = predict_mutation_table(
+            epistatic.to_independent_model(), table,
+            "prediction_independent")
+        out = {"mutation_matrix_file": prefix + "_single_mutant_matrix.csv"}
+        table.to_csv(out["mutation_matrix_file"], index=False)
+        not_produced.add(
+            "mutate: {0}_{{epistatic,independent}}_model.pdf and .pml "
+            "(matplotlib is not installed on this machine)".format(
+                os.path.basename(prefix)))
+    return out, time.perf_counter() - t
+
+
+def runtime_seconds(state):
+    import pandas as pd
+
+    table = pd.read_csv(state["runtime_file"])
+    return dict(zip(table.scope, table.seconds))
 
 
 def main():
@@ -516,9 +639,12 @@ def main():
                     os.path.join(tmp, mode + "_prof.model"), **common, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
+        # user annotations (the fit's plm_step_chunk ranges) enclose
+        # kernels already counted: leave them out of the busy sum
         kern = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count,
                  e.key) for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA")]
+                if str(e.device_type).endswith("CUDA")
+                and not getattr(e, "is_user_annotation", False)]
         busy = sum(ms for ms, _, _ in kern)
         if busy == 0:
             log("phase 5b {}: the profiler shows no device time (not "
@@ -548,8 +674,193 @@ def main():
     log("phase 5 production step ms, fused_update on {} vs off {}".format(
         step_ms["on"], step_ms["off"]))
 
+    # ---- phase 6: the pipeline, through the entry point users call:
+    # execute_wrapped with stages [align, couplings] (align `existing`,
+    # couplings `standard`), then the mutate protocol on its outputs
+    import pandas as pd
+
+    from evcouplings_torch.utils import pipeline
+    from evcouplings_torch.utils.config import (
+        iterate_files, read_config_file,
+    )
+    from evcouplings_torch.utils.system import insert_dir
+
+    counters = {"K1": k_reweight.neighbor_counts,
+                "K2": k_adam.fused_adam_update_cuda,
+                "K3": k_adam.fused_adam_update_presym_cuda,
+                "K4": k_seqdot.sequential_dots}
+    not_produced = set()
+
+    def run_job(config):
+        """One job, its kernel launches counted from zero, and its final
+        state; every file the final outcfg names must exist."""
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = pipeline.execute_wrapped(**config)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = {k: c.launches for k, c in counters.items()}
+        final = read_config_file(
+            config["global"]["prefix"] + "_final.outcfg")
+        assert set(final) == set(state)
+        missing = [p for p, _, _ in iterate_files(final)
+                   if not os.path.isfile(p)]
+        assert not missing, missing
+        return state, counts, secs
+
+    # 6a: card against host at a small size (N=150, L=18). With this
+    # config's lambda_J (lambda_J_times_Lq: 3.4, against the golden fit's
+    # 16.15) the fit amplifies the card's one-ulp differences faster than
+    # phase 4b's: the gate is held at 12 iterations, and the excess at 20
+    # is printed beside it
+    small = os.path.join(tmp, "synthetic.a2m")
+    write_synthetic_a2m(small)
+    align_kw = dict(extract_annotation=False, minimum_sequence_coverage=50,
+                    minimum_column_coverage=70,
+                    compute_num_effective_seqs=True)
+
+    def small_jobs(iterations, with_mutate):
+        couplings_kw = dict(iterations=iterations, reuse_ecs=False,
+                            min_sequence_distance=3,
+                            scoring_model="skewnormal")
+        jobs = {}
+        for device in ("cuda", "cpu"):
+            root = os.path.join(tmp, "small{}_{}".format(iterations, device))
+            state, counts, secs = run_job(pipeline_config(
+                os.path.join(root, "job"), small, "TARGET_SEQ", align_kw,
+                couplings_kw, device=None if device == "cuda" else "cpu"))
+            mut, mut_secs = (run_mutate(
+                state["model_file"], os.path.join(root, "mutate", "job"),
+                not_produced) if with_mutate else (None, 0.0))
+            jobs[device] = (state, mut)
+            log("phase 6a {} iterations, {} job: {:.2f} s, stages {}, mutate "
+                "{:.2f} s, kernel launches {}".format(
+                    iterations, device, secs,
+                    json.dumps(runtime_seconds(state)), mut_secs,
+                    json.dumps(counts)))
+            if device == "cuda":
+                assert counts["K1"] == 2 and counts["K4"] > 0, counts
+        (card, _), (host, _) = jobs["cuda"], jobs["cpu"]
+        card_m, host_m = (CouplingsModel(s["model_file"])
+                          for s in (card, host))
+        excess = {a: max_rel_excess(getattr(card_m, a), getattr(host_m, a))
+                  for a in ("J_ij", "h_i", "f_i", "f_ij")}
+        card_ec, host_ec = (pd.read_csv(s["ec_file"]).sort_values(["i", "j"])
+                            for s in (card, host))
+        for col in ("cn", "fn"):
+            excess[col] = max_rel_excess(card_ec[col], host_ec[col])
+        return jobs, excess, card_ec, host_ec
+
+    jobs, excess, card_ec, host_ec = small_jobs(12, with_mutate=True)
+    (card, card_mut), (host, host_mut) = jobs["cuda"], jobs["cpu"]
+    assert set(card) - {"device"} == set(host) - {"device"}
+    with open(card["alignment_file"]) as a, open(host["alignment_file"]) as b:
+        assert a.read() == b.read(), "focus .a2m differs"
+    for key in ("identities_file", "frequencies_file",
+                "sequence_weights_file", "statistics_file"):
+        got, want = pd.read_csv(card[key]), pd.read_csv(host[key])
+        if key == "statistics_file":
+            got, want = got.drop(columns="prefix"), want.drop(columns="prefix")
+        pd.testing.assert_frame_equal(got, want, check_exact=True)
+    assert max(excess.values()) <= 1.0, excess
+    assert_exact_rank_order(card_ec, host_ec)
+    # the skew-normal EM amplifies gate-sized CN differences: atol 1e-3
+    prob_err = float(np.max(np.abs(card_ec.probability.values
+                                   - host_ec.probability.values)))
+    assert prob_err <= 1e-3, prob_err
+    got, want = (pd.read_csv(m["mutation_matrix_file"])
+                 for m in (card_mut, host_mut))
+    assert (got.mutant.values == want.mutant.values).all()
+    # a Delta-E sums L + 1 parameter differences, each within the gate
+    n_terms = got.pos.nunique() + 1
+    for col in ("prediction_epistatic", "prediction_independent"):
+        err = np.abs(got[col].values - want[col].values)
+        assert np.all(err <= n_terms * ATOL + RTOL * np.abs(want[col])), col
+    log("phase 6a card vs host, 12 iterations: .a2m and the align CSVs "
+        "equal, outcfg keys equal; excess over the 1e-4 gate {}; "
+        "skew-normal probability max |err| {:.2e} (atol 1e-3); "
+        "single-mutant matrix within RTOL and {} ATOL".format(
+            json.dumps(excess), prob_err, n_terms))
+    _, excess20, _, _ = small_jobs(20, with_mutate=False)
+    log("phase 6a card vs host, 20 iterations (not gated): excess over the "
+        "1e-4 gate {}".format(json.dumps(excess20)))
+
+    # 6b: full width. The phase-5 synthetic (N=16384 + focus row, L=160,
+    # q=21) with 8 planted covarying pairs, through the sample monomer
+    # config's align and couplings settings (coverage filters, theta 0.8,
+    # lambda_J_times_Lq, logistic-regression scoring, min sequence
+    # distance 6); N_eff is computed in the align stage. Depth is cut:
+    # 5 iterations instead of 100.
+    rng6 = np.random.default_rng(SEED + 6)
+    codes6 = synthetic_codes(rng6, n, L, 21, families=256, mutate=0.15,
+                             gap_rows=0.1, missing_rows=0.0)
+    planted = [(3, 40), (12, 77), (25, 150), (51, 90), (60, 131),
+               (84, 118), (99, 142), (107, 158)]
+    plant_pairs(rng6, codes6, planted)
+    full = os.path.join(tmp, "pf00071_scale_planted.a2m")
+    write_a2m(full, codes6)
+    del codes6
+    align_kw = dict(extract_annotation=True, minimum_sequence_coverage=50,
+                    minimum_column_coverage=70,
+                    compute_num_effective_seqs=True)
+    sample_couplings = dict(iterations=5, reuse_ecs=True,
+                            checkpoint_every=None, solver="lbfgs",
+                            precision="parity", steps_per_call=1,
+                            pad_sites=None, pad_rows=None,
+                            parametrization="auto", fit_devices=None,
+                            model_shards=None,
+                            scoring_model="logistic_regression",
+                            min_sequence_distance=6)
+    production = dict(sample_couplings, solver="adam",
+                      precision="production", iterations=20,
+                      steps_per_call=None)
+    pipeline_launches = dict.fromkeys(counters, 0)
+    for mode, couplings_kw in (("parity", sample_couplings),
+                               ("production", production)):
+        prefix = os.path.join(tmp, "full_" + mode, "job")
+        state, counts, secs = run_job(pipeline_config(
+            prefix, full, "TARGET", align_kw, couplings_kw))
+        for k in counts:
+            pipeline_launches[k] += counts[k]
+        stage_secs = runtime_seconds(state)
+        fit_secs = float(pd.read_csv(
+            insert_dir(prefix, "couplings")
+            + "_iteration_table.csv").time.iloc[-1])
+        longrange = pd.read_csv(state["ec_longrange_file"])
+        top8 = set(zip(longrange.i.values[:8], longrange.j.values[:8]))
+        want8 = {(i + 1, j + 1) for i, j in planted}
+        log("phase 6b {} job N={} (after the coverage filter; N_eff {:.1f}) "
+            "L={}: {:.2f} s; stages {}; couplings fit loop {:.2f} s, host "
+            "rest of the couplings stage {:.2f} s; kernel launches {}; "
+            "planted pairs in the top 8 long-range ECs: {}/8".format(
+                mode, state["num_sequences"], state["effective_sequences"],
+                state["num_sites"], secs, json.dumps(stage_secs), fit_secs,
+                stage_secs["couplings"] - fit_secs, json.dumps(counts),
+                len(top8 & want8)))
+        assert counts["K1"] == 2, counts
+        if mode == "parity":
+            assert counts["K4"] > 0 and counts["K2"] == 0, counts
+            assert top8 == want8, sorted(top8)
+            mut, mut_secs = run_mutate(
+                state["model_file"], os.path.join(
+                    os.path.dirname(prefix), "mutate", "job"), not_produced)
+            table = pd.read_csv(mut["mutation_matrix_file"])
+            assert len(table) == L * 19, len(table)
+            assert np.isfinite(table.prediction_epistatic).all()
+            log("phase 6b parity mutate: {:.2f} s, {} single mutants".format(
+                mut_secs, len(table)))
+        else:
+            assert counts["K2"] > 0, counts
+    log("phase 6 pipeline launches (both full-width jobs):",
+        json.dumps(pipeline_launches))
+
     for k, row in rows.items():
         row["launches"] = launches[k]
+        row["pipeline_launches"] = pipeline_launches[k]
+    for item in sorted(not_produced):
+        log("phase 6 not produced:", item)
     log(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4")]}))
     log(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

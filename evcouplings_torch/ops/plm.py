@@ -38,8 +38,9 @@ operands instead), while the logits product keeps the compute dtype.
 Master parameters, optimizer moments and weights stay float32.
 
 Solvers: "lbfgs" (ops/lbfgs.py) and "adam" (the optax.adam formula;
-with fused_update="on" the epilogue of each step is K2, the Triton
-kernel behind ops/plm_update.fused_adam_update).
+with fused_update="on", and "auto" on a CUDA device, the epilogue of
+each step is K2, the Triton kernel behind
+ops/plm_update.fused_adam_update).
 """
 
 import os
@@ -56,6 +57,7 @@ from evcouplings_torch.ops.lbfgs import init_lbfgs_state, make_lbfgs_chunk
 from evcouplings_torch.ops.plm_update import (
     ADAM_B1, ADAM_B2, ADAM_EPS, fused_adam_update,
 )
+from evcouplings_torch.utils.tracing import annotate
 
 
 @dataclass(frozen=True)
@@ -91,7 +93,8 @@ class PlmConfig:
     # "carried" | "two_phase" | "auto" (two_phase iff bf16, blocks >=
     # 2048 and the one-hot fits _ONEHOT_HBM_BUDGET)
     grad_layout: str = "auto"
-    # Adam epilogue through K2: "on" | "off" | "auto" (off; see
+    # Adam epilogue through K2: "on" | "off" | "auto" (on for an
+    # eligible fit on a CUDA device, off on the CPU; see
     # _resolve_fused_update)
     fused_update: str = "auto"
 
@@ -425,13 +428,18 @@ def make_plm_value_and_grad(L, q, cfg, mesh=None, symmetric_params=False):
     return vg
 
 
-def _resolve_fused_update(cfg, mesh, master_dtype):
+def _resolve_fused_update(cfg, mesh, master_dtype,
+                          device=torch.device("cpu")):
     """Whether the Adam steps run their epilogue through K2.
 
-    "auto" resolves to off, with the JAX package's meaning; "on"
-    requires the adam solver, lambda_group == 0, float32 masters and no
-    mesh. On a CUDA device "on" launches K2; on the CPU it runs K2's
-    plain version.
+    "on" requires the adam solver, lambda_group == 0, float32 masters
+    and no mesh; on a CUDA device it launches K2, on the CPU it runs
+    K2's plain version. "auto" resolves to on where those hold and the
+    fit runs on a CUDA device: on an NVIDIA H100 80GB HBM3 at its 700 W
+    limit a production step (N=16384, L=160) took 3.19-3.70 ms fused
+    against 4.11-4.60 ms unfused, fused faster in every pair
+    (chip_smoke.py phase 5, PERF.md). On the CPU "auto" stays off, the JAX
+    package's rule, which came from a TPU measurement.
     """
     if cfg.fused_update == "off":
         return False
@@ -445,7 +453,7 @@ def _resolve_fused_update(cfg, mesh, master_dtype):
         return True
     if cfg.fused_update != "auto":
         raise ValueError("Unknown fused_update: {}".format(cfg.fused_update))
-    return False
+    return eligible and torch.device(device).type == "cuda"
 
 
 def _lbfgs_dots(compute_dtype, precision):
@@ -674,7 +682,7 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
             zeros = {k: torch.zeros_like(v) for k, v in params.items()}
             state = {"count": 0, "mu": zeros,
                      "nu": {k: torch.zeros_like(v) for k, v in zeros.items()}}
-            if _resolve_fused_update(cfg, mesh, dtype):
+            if _resolve_fused_update(cfg, mesh, dtype, codes_d.device):
                 step = _make_fused_adam_step(
                     make_plm_nll_vg(L, q, cfg), L, q, cfg, compute_dtype)
                 state["J_aug"] = _build_j_aug(
@@ -734,7 +742,8 @@ def _fit_loop(run_chunk, params, state, cfg, steps_per_call, callback):
     ls_col = 3 if cfg.solver == "lbfgs" else None
     while it < cfg.max_iter and not converged and not ls_failed:
         n_steps = min(steps_per_call, cfg.max_iter - it)
-        params, state, metrics = run_chunk(params, state)
+        with annotate("plm_step_chunk"):
+            params, state, metrics = run_chunk(params, state)
         metrics = metrics.cpu().double().numpy()
         now = time.time() - t0
         # the table is truncated at the first converged iteration (plmc

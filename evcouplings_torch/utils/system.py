@@ -1,5 +1,6 @@
-"""File helpers the fitter uses (copy of the JAX package's
-utils/system.py subset; the port imports nothing of that package)."""
+"""File and directory helpers the fitter and the pipeline use (the
+subset of evcouplings_tpu/utils/system.py that runs no external program
+and fetches nothing; the port imports nothing of that package)."""
 
 import os
 
@@ -37,3 +38,17 @@ def create_prefix_folders(prefix):
     dirname = os.path.dirname(prefix)
     if dirname:
         os.makedirs(dirname, exist_ok=True)
+
+
+def insert_dir(prefix, *dirs, rootname_subdir=True):
+    """Create a path with subdirectories inserted before the prefix rootname.
+
+    With rootname_subdir=True (the default), the result is
+    ``<dir-of-prefix>/<rootname>/<dirs...>/<rootname>``; otherwise
+    ``<dir-of-prefix>/<dirs...>/<rootname>``.
+    """
+    base_dir, rootname = os.path.split(prefix)
+
+    if rootname_subdir:
+        return os.path.join(base_dir, rootname, *dirs, rootname)
+    return os.path.join(base_dir, *dirs, rootname)

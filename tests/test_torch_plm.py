@@ -231,6 +231,26 @@ def test_fused_update_resolution():
             torch.float32)
 
 
+def test_fused_update_auto_follows_the_device():
+    # "auto" is on for an eligible fit on a CUDA device (the card's
+    # measurement), off on the CPU (the JAX package's rule) and off for
+    # an ineligible fit anywhere; no card is needed to resolve it
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    adam = tp.PlmConfig(solver="adam")
+    assert tp._resolve_fused_update(adam, None, torch.float32, cuda)
+    assert not tp._resolve_fused_update(adam, None, torch.float32, cpu)
+    assert not tp._resolve_fused_update(adam, None, torch.float32)
+    for cfg, master in ((tp.PlmConfig(solver="lbfgs"), torch.float32),
+                        (tp.PlmConfig(solver="adam", lambda_group=0.1),
+                         torch.float32),
+                        (adam, torch.float64)):
+        assert not tp._resolve_fused_update(cfg, None, master, cuda)
+    assert not tp._resolve_fused_update(adam, object(), torch.float32, cuda)
+    assert not tp._resolve_fused_update(
+        tp.PlmConfig(solver="adam", fused_update="off"), None,
+        torch.float32, cuda)
+
+
 def test_unported_options_raise(tmp_path):
     codes = np.zeros((8, 3), np.int8)
     for cfg, kw in (

@@ -16,14 +16,21 @@ GOLDEN = os.path.join(REPO, "tests", "data", "golden")
 
 PORT_MODULES = [
     "evcouplings_torch",
-    "evcouplings_torch.convert",
     "evcouplings_torch.align.alignment",
+    "evcouplings_torch.align.protocol",
+    "evcouplings_torch.convert",
     "evcouplings_torch.couplings.fitter",
+    "evcouplings_torch.couplings.mapping",
     "evcouplings_torch.couplings.model",
+    "evcouplings_torch.couplings.pairs",
+    "evcouplings_torch.couplings.protocol",
     "evcouplings_torch.kernels._build",
     "evcouplings_torch.kernels.adam_update",
     "evcouplings_torch.kernels.reweight",
     "evcouplings_torch.kernels.seqdot",
+    "evcouplings_torch.mutate",
+    "evcouplings_torch.mutate.calculations",
+    "evcouplings_torch.mutate.protocol",
     "evcouplings_torch.ops.encode",
     "evcouplings_torch.ops.frequencies",
     "evcouplings_torch.ops.gauge",
@@ -33,7 +40,21 @@ PORT_MODULES = [
     "evcouplings_torch.ops.plm_update",
     "evcouplings_torch.ops.scores",
     "evcouplings_torch.ops.weights",
+    "evcouplings_torch.utils.calculations",
+    "evcouplings_torch.utils.config",
+    "evcouplings_torch.utils.constants",
+    "evcouplings_torch.utils.helpers",
+    "evcouplings_torch.utils.pipeline",
     "evcouplings_torch.utils.system",
+    "evcouplings_torch.utils.tracing",
+    "evcouplings_torch.utils.tracker",
+    "evcouplings_torch.utils.tracker.base",
+    "evcouplings_torch.visualize",
+    "evcouplings_torch.visualize.misc",
+    "evcouplings_torch.visualize.mutations",
+    "evcouplings_torch.visualize.pairs",
+    "evcouplings_torch.visualize.parameters",
+    "evcouplings_torch.visualize.pymol",
 ]
 
 
@@ -43,7 +64,8 @@ def test_import_leaves_jax_out():
         "import importlib, sys\n"
         "for m in {!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m.startswith('evcouplings_tpu') or m.startswith('jaxlib')]\n"
+        " or m.startswith('evcouplings_tpu') or m.startswith('jaxlib')"
+        " or m.startswith('matplotlib')]\n"
         "assert not bad, bad\n"
         "print('ok')\n".format(PORT_MODULES))
     env = dict(os.environ, PYTHONPATH=REPO)
