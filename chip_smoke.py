@@ -11,7 +11,11 @@ headline shape (N=16384 sequences, L=160 sites, q=21): run_plm (the
 in-process plmc replacement) in parity and production mode (phase 5),
 and the pipeline a user runs, execute_wrapped with stages align and
 couplings, then the mutate protocol (phase 6; card against host at a
-small size first). Every phase raises on a mismatch; nothing is caught,
+small size first). Phase 7 drives the couplings stage's other routes:
+exact group-L1 by FISTA (against the certified prox oracle, then at full
+width), checkpoint/resume (bitwise at full width), the asymmetric fit
+(golden3, full width, "auto" routing) and mean-field DCA through the
+pipeline. Every phase raises on a mismatch; nothing is caught,
 except that a machine without matplotlib cannot draw the mutate stage's
 plots, which the script then names before its last lines. The last
 lines are a JSON object describing each kernel, the card's name and
@@ -46,6 +50,9 @@ PARITY_CHAINS_UNBATCHED = 74
 
 # golden-fit gate of the repository (tests/test_golden_regression.py)
 RTOL, ATOL = 1e-4, 1e-5
+# iterations up to which the asymmetric golden fit (golden3) on the card
+# is held to the gate against the port's host path (phase 7c)
+GOLDEN3_GATE_ITERATIONS = 12
 
 
 def log(*parts):
@@ -116,14 +123,16 @@ def read_ec(path):
 
 
 def assert_exact_rank_order(got, want, max_exempt_frac=0.02,
-                            max_top_l_exempt=0):
-    """Every pair of ECs whose golden cn scores differ by more than the
-    gate's tolerance must rank the same way in the refit; at most
-    max_exempt_frac of all comparisons may be exempt as near-ties, and
-    none among the top-L (the rule of the repository's golden gate)."""
+                            max_top_l_exempt=0, col="cn", rtol=RTOL,
+                            atol=ATOL):
+    """Every pair of ECs whose reference scores (column `col`) differ by
+    more than the gate's tolerance must rank the same way in the refit; at
+    most max_exempt_frac of all comparisons may be exempt as near-ties,
+    and none among the top-L (the rule of the repository's golden
+    gate)."""
     key = list(zip(want.i.values, want.j.values))
-    want_cn = dict(zip(key, want.cn.values))
-    got_cn = dict(zip(zip(got.i.values, got.j.values), got.cn.values))
+    want_cn = dict(zip(key, want[col].values))
+    got_cn = dict(zip(zip(got.i.values, got.j.values), got[col].values))
     assert set(got_cn) == set(want_cn)
     n_sites = len(set(want.i.values) | set(want.j.values))
     ranked = sorted(key, key=lambda k: -want_cn[k])
@@ -133,7 +142,7 @@ def assert_exact_rank_order(got, want, max_exempt_frac=0.02,
             b = ranked[idx_b]
             checked += 1
             gap = want_cn[a] - want_cn[b]
-            tol = RTOL * max(abs(want_cn[a]), abs(want_cn[b])) + ATOL
+            tol = rtol * max(abs(want_cn[a]), abs(want_cn[b])) + atol
             if gap > tol:
                 assert got_cn[a] > got_cn[b], (
                     "rank swap of distinguishable pair: {} ({}) vs {} "
@@ -271,6 +280,524 @@ def runtime_seconds(state):
 
     table = pd.read_csv(state["runtime_file"])
     return dict(zip(table.scope, table.seconds))
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the couplings stage's other fit routes (FISTA, checkpoint/resume,
+# the asymmetric fit, mean-field DCA), each driven on the card at full width
+# ---------------------------------------------------------------------------
+
+def kernel_counts():
+    """The launch counters of K1, K2, K3 and K4 (name -> wrapper)."""
+    from evcouplings_torch.kernels import adam_update as k_adam
+    from evcouplings_torch.kernels import reweight as k_reweight
+    from evcouplings_torch.kernels import seqdot as k_seqdot
+
+    return {"K1": k_reweight.neighbor_counts,
+            "K2": k_adam.fused_adam_update_cuda,
+            "K3": k_adam.fused_adam_update_presym_cuda,
+            "K4": k_seqdot.sequential_dots}
+
+
+def counted(fn):
+    """fn() with every kernel counter set to 0 just before and read just
+    after: (fn's result, {kernel: launches})."""
+    import torch
+
+    counters = kernel_counts()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def zero_pair_blocks(J_ij):
+    L = J_ij.shape[0]
+    norms = np.sqrt((J_ij ** 2).sum(axis=(2, 3)))[np.triu_indices(L, k=1)]
+    return int(np.sum(norms == 0.0)), len(norms)
+
+
+def block_gradient_norms(codes, weights, lambda_J):
+    """Twice the norm of each pair block of the smooth objective's J
+    gradient at J = 0, h = 0: the first FISTA prox step zeroes a block iff
+    this is at most lambda_g. Returns the norms of the L(L-1)/2 pair
+    blocks (numpy)."""
+    import torch
+
+    from evcouplings_torch._device import matmul_precision
+    from evcouplings_torch.ops import plm as ops_plm
+    from evcouplings_torch.ops.encode import pad_rows
+
+    n, L = codes.shape
+    codes_p, _ = pad_rows(np.asarray(codes, dtype=np.int8), 512)
+    codes_p[n:] = -1
+    w = torch.zeros(len(codes_p), dtype=torch.float32, device="cuda")
+    w[:n] = torch.as_tensor(np.asarray(weights), device="cuda")
+    vg = ops_plm.make_plm_value_and_grad(
+        L, 21, ops_plm.PlmConfig(lambda_J=lambda_J), symmetric_params=True)
+    params = {"J": torch.zeros((L * 21, L * 21), device="cuda"),
+              "h": torch.zeros((L, 21), device="cuda")}
+    with matmul_precision("highest"):
+        _, grads = vg(params, torch.as_tensor(codes_p, device="cuda"), w)
+    norms = 2 * grads["J"].reshape(L, 21, L, 21).pow(2).sum((1, 3)).sqrt()
+    iu = torch.triu_indices(L, L, 1, device="cuda")
+    return norms[iu[0], iu[1]].double().cpu().numpy()
+
+
+def phase7a_fista(tmp, a2m, common):
+    """FISTA: the card against the certified prox oracle (float64, the
+    oracle suite's sparse case), then run_plm with lambda_g > 0 at full
+    width (f32 "highest", 10 iterations)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import oracle_plm as oracle
+    from evcouplings_torch.couplings.fitter import run_plm
+    from evcouplings_torch.ops import plm as ops_plm
+
+    codes = oracle.synthetic_msa(24, 6, 4, seed=17, n_coupled=2)
+    w = np.ones(24)
+    t = time.perf_counter()
+    ref = oracle.fit_prox(codes, w, 4, lambda_h=0.01, lambda_J=0.05,
+                          lambda_group=12.0, tol=1e-8, max_iter=3000)
+    oracle_s = time.perf_counter() - t
+    assert ref["result"]["converged"] and ref["kkt_margin"] > 0.1
+    cfg = ops_plm.PlmConfig(lambda_h=0.01, lambda_J=0.05, lambda_group=12.0,
+                            solver="fista", max_iter=1000, conv_tol=1e-9,
+                            block_size=8, dtype="float64")
+    t = time.perf_counter()
+    fit = ops_plm.fit_plm(codes, w, 4, cfg, device="cuda")
+    card_s = time.perf_counter() - t
+    h_err = float(np.abs(fit.h_i - ref["h"]).max())
+    J_err = float(np.abs(fit.J_ij - ref["J"]).max())
+    bn = np.sqrt((fit.J_ij ** 2).sum(axis=(2, 3)))[np.triu_indices(6, k=1)]
+    assert np.array_equal(np.flatnonzero(bn == 0.0),
+                          np.sort(ref["zero_pairs"])), bn
+    assert h_err <= 5e-6 and J_err <= 2e-6, (h_err, J_err)
+    log("phase 7a FISTA vs the certified prox oracle (float64, L=6, q=4, "
+        "1000 iterations on the card in {:.1f} s; oracle {:.1f} s on the "
+        "host): zero set equal ({} of 15 pairs), max |h err| {:.2e} (5e-6), "
+        "max |J err| {:.2e} (2e-6)".format(
+            card_s, oracle_s, len(ref["zero_pairs"]), h_err, J_err))
+
+    # lambda_g: a percentile of the pair blocks' first-step prox test with
+    # the fit's sequence weights; at the median the first prox step keeps
+    # about half the blocks, at the 25th percentile about three quarters
+    from evcouplings_torch.couplings.fitter import prepare_alignment
+    from evcouplings_torch.couplings.model import CouplingsModel
+    from evcouplings_torch.ops.weights import num_cluster_members
+
+    codes = prepare_alignment(a2m, focus_seq=common["focus_seq"])["codes"]
+    weights = 1.0 / num_cluster_members(
+        torch.as_tensor(codes, device="cuda"), common["theta"]).cpu().numpy()
+    p1, p25, p50, p99 = np.quantile(
+        block_gradient_norms(codes, weights, common["lambda_J"]),
+        [0.01, 0.25, 0.5, 0.99])
+    log("phase 7a twice the pair blocks' gradient norms at J = 0 (N_eff "
+        "{:.1f} of N={}): 1st, 25th, 50th, 99th percentile {:.1f}, {:.1f}, "
+        "{:.1f}, {:.1f}; lambda_g = the median, then the 25th "
+        "percentile".format(weights.sum(), len(codes), p1, p25, p50, p99))
+    main_counts = None
+    for name, lambda_g in (("median", p50), ("25th percentile", p25)):
+        table = []
+        before = dict(ops_plm.fista_counts)
+        (res, t_s), counts = counted(lambda: timed(lambda: run_plm(
+            a2m, os.path.join(tmp, "fista_ECs.txt"),
+            os.path.join(tmp, "fista.model"), iterations=10,
+            lambda_g=lambda_g, solver=None, compute_dtype="float32",
+            matmul_precision="highest", callback=table.append, **common)))
+        steps = ops_plm.fista_counts["steps"] - before["steps"]
+        backtracks = ops_plm.fista_counts["backtracks"] - before["backtracks"]
+        fx = [r["fx"] for r in table]
+        assert steps == 10 and len(fx) == 10 and np.all(np.isfinite(fx)), fx
+        assert fx[-1] < fx[0], fx
+        zeros, pairs = zero_pair_blocks(
+            CouplingsModel(os.path.join(tmp, "fista.model")).J_ij)
+        log("phase 7a FISTA run_plm N={} L={} (lambda_g {:.1f}, the {} -> "
+            "solver fista, f32 highest): 10 iterations in {:.2f} s end to "
+            "end, {:.4f} s per iteration in the fit loop, {:.2f} backtracks "
+            "per iteration ({} trial evaluations in all), {} of {} pair "
+            "blocks exactly zero, fx {:.2f} -> {:.2f}; launches {}".format(
+                res.num_valid_seqs, res.num_valid_sites, lambda_g, name, t_s,
+                (table[-1]["time"] - table[0]["time"]) / 9,
+                backtracks / steps, steps + backtracks, zeros, pairs, fx[0],
+                fx[-1], json.dumps(counts)))
+        assert counts["K1"] == 1 and counts["K4"] == 0, counts
+        main_counts = main_counts or counts
+    return main_counts
+
+
+def profile_device_time(what, fn):
+    """fn() once under torch.profiler: the wall time, the device's busy
+    share of it, the GEMMs' share of the busy time, and the kernels with
+    the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(fn)
+    # user annotations (a fit's plm_step_chunk ranges) enclose kernels
+    # already counted: leave them out of the busy sum
+    kern = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)]
+    busy = sum(ms for ms, _, _ in kern)
+    if busy == 0:
+        log("{} under the profiler: no device time (not measured)".format(
+            what))
+        return
+    gemm = sum(ms for ms, _, k in kern
+               if any(t in k.lower() for t in ("gemm", "cutlass", "nvjet",
+                                               "sm90_xmma")))
+    top = sorted(kern, reverse=True)[:6]
+    log("{} under the profiler: wall {:.3f} s, device busy {:.3f} s "
+        "({:.1%}), GEMM kernels {:.1f} ms ({:.1%} of busy); top device "
+        "time: {}".format(what, wall, busy / 1e3, busy / 1e3 / wall, gemm,
+                          gemm / busy, "; ".join(
+                              "{} x{} {:.1f} ms".format(k[:60], c, ms)
+                              for ms, c, k in top)))
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase7b_resume(tmp, codes, lambda_J):
+    """Checkpoint/resume at full width: for each solver an uninterrupted
+    fit of 2k iterations against one stopped at k and resumed to 2k, bit
+    for bit; then a snapshot of another configuration must be refused.
+    Deterministic algorithms are requested (warn_only) over the fits, and
+    the warnings they raise are printed."""
+    import warnings
+
+    import torch
+
+    from evcouplings_torch.ops.plm import PlmConfig, fit_plm
+
+    weights = np.ones(len(codes))
+    # FISTA at the median of the pair blocks' first-step prox test (unit
+    # weights), so the prox zeroes blocks from the first step
+    lambda_g = np.median(block_gradient_norms(codes, weights, lambda_J))
+    cases = (
+        ("parity lbfgs", 3, dict(solver="lbfgs", dtype="float32",
+                                 precision="highest")),
+        ("production adam (fused auto)", 5, dict(
+            solver="adam", dtype="bfloat16", precision="default",
+            block_size=8192)),
+        ("fista", 3, dict(solver="fista", lambda_group=lambda_g,
+                          dtype="float32", precision="highest")),
+    )
+    out = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for name, k, kw in cases:
+                def cfg(n):
+                    return PlmConfig(max_iter=n, conv_tol=0.0,
+                                     lambda_J=lambda_J, **kw)
+                ckpt = os.path.join(tmp, "resume_{}.npz".format(k))
+                if os.path.exists(ckpt):
+                    os.remove(ckpt)
+                (ref, ref_s), counts = counted(lambda: timed(
+                    lambda: fit_plm(codes, weights, 21, cfg(2 * k),
+                                    device="cuda")))
+                fit_plm(codes, weights, 21, cfg(k), checkpoint_file=ckpt,
+                        checkpoint_every=k, device="cuda")
+                snap_mb = os.path.getsize(ckpt) / 1e6
+                res, res_s = timed(lambda: fit_plm(
+                    codes, weights, 21, cfg(2 * k), checkpoint_file=ckpt,
+                    checkpoint_every=k, device="cuda"))
+                assert res.iteration_table[0]["iter"] == k + 1, name
+                assert np.array_equal(res.J_ij, ref.J_ij), name
+                assert np.array_equal(res.h_i, ref.h_i), name
+                assert res.final_loss == ref.final_loss, name
+                log("phase 7b {}: {} iterations uninterrupted ({:.2f} s) "
+                    "and {} + {} resumed from a {:.0f} MB snapshot ({:.2f} s "
+                    "for the resumed half): J_ij, h_i and the final loss "
+                    "bitwise equal ({} of {} pair blocks zero); launches of "
+                    "the uninterrupted fit {}".format(
+                        name, 2 * k, ref_s, k, k, snap_mb, res_s,
+                        *zero_pair_blocks(ref.J_ij), json.dumps(counts)))
+                out[name] = counts
+                if name.startswith("production"):
+                    try:
+                        fit_plm(codes, weights, 21, PlmConfig(
+                            max_iter=2 * k, lambda_J=lambda_J,
+                            adam_lr=1e-2, **kw),
+                            checkpoint_file=ckpt, device="cuda")
+                    except ValueError as e:
+                        assert "DIFFERENT" in str(e), e
+                    else:
+                        raise AssertionError(
+                            "a snapshot of another config was resumed")
+                os.remove(ckpt)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    msgs = sorted({str(w.message).split(".")[0][:160] for w in caught})
+    log("phase 7b another configuration's snapshot refused (ValueError); "
+        "deterministic-algorithm warnings over the fits: {}".format(
+            json.dumps(msgs) if msgs else "none"))
+    return out
+
+
+def phase7c_asymmetric(tmp, a2m, codes, common, golden_gate):
+    """The asymmetric fit: golden3 on the card, full width (Adam bf16 and
+    per-site LBFGS f32), and "auto" routing under a simulated budget."""
+    import torch
+
+    import evcouplings_torch.couplings.fitter as fitter
+    from evcouplings_torch.couplings.fitter import run_plm
+    from evcouplings_torch.couplings.model import CouplingsModel
+    from evcouplings_torch.ops import plm as ops_plm
+    from evcouplings_torch.ops.plm_sites import fit_plm_asym
+
+    g3_kw = dict(focus_seq="TARGET_SEQ/11-28", theta=0.8, lambda_h=0.01,
+                 lambda_J=16.15, parametrization="asymmetric",
+                 solver="lbfgs", compute_dtype="float32",
+                 matmul_precision="highest")
+
+    def g3(device, iterations):
+        tag = "g3_{}_{}".format(device, iterations)
+        run_plm(os.path.join(GOLDEN, "golden.a2m"),
+                os.path.join(tmp, tag + "_ECs.txt"),
+                os.path.join(tmp, tag + ".model"), iterations=iterations,
+                device=device, **g3_kw)
+        return (read_ec(os.path.join(tmp, tag + "_ECs.txt")),
+                CouplingsModel(os.path.join(tmp, tag + ".model")))
+
+    # the card against the port's host path, iteration count by count
+    # (all printed first); the gate holds up to GOLDEN3_GATE_ITERATIONS
+    runs = {}
+    for its in (8, 10, 12, 14, 16):
+        runs[its] = g3("cuda", its), g3("cpu", its)
+        excess, _ = golden_gate(*runs[its][0], *runs[its][1])
+        log("phase 7c golden3 card vs host at {} iterations: excess over "
+            "the 1e-4 gate {}".format(its, json.dumps(excess)))
+    for its, ((card_ec, card_m), (host_ec, host_m)) in runs.items():
+        if its <= GOLDEN3_GATE_ITERATIONS:
+            excess, _ = golden_gate(card_ec, card_m, host_ec, host_m)
+            assert max(excess.values()) <= 1.0, (its, excess)
+            assert_exact_rank_order(card_ec, host_ec, max_exempt_frac=1.0,
+                                    max_top_l_exempt=len(host_ec))
+    want_ec = read_ec(os.path.join(GOLDEN, "golden3_ECs.txt"))
+    want_m = CouplingsModel(os.path.join(GOLDEN, "golden3.model"))
+    card_ec, card_m = g3("cuda", 25)
+    excess, abs_err = golden_gate(card_ec, card_m, want_ec, want_m)
+    log("phase 7c golden3 at 25 iterations on the card against the "
+        "fixture: excess over the 1e-4 gate {}, max |err| {}".format(
+            json.dumps(excess), json.dumps(abs_err)))
+    # twice the drift one-ulp gradient noise causes on the host
+    # (tests/test_torch_plm_sites.py::test_golden3_ulp_envelope)
+    envelope = {"cn": 4e-3, "fn": 4e-3, "J_ij": 6e-3, "h_i": 0.5}
+    assert all(abs_err[k] <= envelope[k] for k in envelope), abs_err
+    log("phase 7c golden3 within the 1-ulp envelope {}".format(
+        json.dumps(envelope)))
+
+    # full width: the phase-5 synthetic, Adam bf16 and per-site LBFGS f32
+    weights = np.ones(len(codes))
+    out = {}
+    for name, steps, kw in (
+            ("adam bf16", 20, dict(solver="adam", dtype="bfloat16",
+                                   precision="default", block_size=1024)),
+            ("per-site lbfgs f32", 5, dict(solver="lbfgs", dtype="float32",
+                                           precision="highest",
+                                           block_size=1024))):
+        table = []
+        cfg = ops_plm.PlmConfig(max_iter=steps, conv_tol=0.0,
+                                lambda_J=common["lambda_J"], **kw)
+        (fit, secs), counts = counted(lambda: timed(lambda: fit_plm_asym(
+            codes, weights, 21, cfg, callback=table.append,
+            device="cuda")))
+        fx = [r["fx"] for r in table]
+        assert len(fx) == steps and np.all(np.isfinite(fx)), fx
+        assert fx[-1] < fx[0] and np.isfinite(fit.J_ij).all(), fx
+        step_ms = (table[-1]["time"] - table[0]["time"]) * 1e3 / (steps - 1)
+        log("phase 7c asymmetric {} N={} L={}: {} steps in {:.2f} s, "
+            "{:.2f} ms per step (steps 2..{}), fx {:.2f} -> {:.2f}; "
+            "launches {}".format(name, *codes.shape, steps, secs, step_ms,
+                                 steps, fx[0], fx[-1], json.dumps(counts)))
+        out[name] = step_ms
+        profile_device_time("phase 7c asymmetric " + name, lambda: (
+            fit_plm_asym(codes, weights, 21, cfg, device="cuda")))
+
+    # "auto" routes to the asymmetric fit when the symmetric estimate
+    # passes 0.9 x the (simulated) device budget
+    n_fit, L = codes.shape
+    sym = ops_plm.estimate_fit_hbm_bytes(
+        n_fit, L, 21, ops_plm.PlmConfig(block_size=512))
+    asym = ops_plm.estimate_fit_hbm_bytes(
+        n_fit, L, 21, ops_plm.PlmConfig(solver="adam", block_size=1024),
+        "asymmetric")
+    budget = int(1.05 * asym)
+    assert sym > 0.9 * budget, (sym, asym)
+    calls = []
+    real = fitter.fit_plm_asym
+
+    def spy(*args, **kw):
+        calls.append(kw.get("device"))
+        return real(*args, **kw)
+
+    os.environ["EVCOUPLINGS_HBM_BYTES"] = str(budget)
+    fitter.fit_plm_asym = spy
+    try:
+        (res, secs), counts = counted(lambda: timed(lambda: run_plm(
+            a2m, os.path.join(tmp, "auto_ECs.txt"),
+            os.path.join(tmp, "auto.model"), iterations=3, **common)))
+    finally:
+        fitter.fit_plm_asym = real
+        del os.environ["EVCOUPLINGS_HBM_BYTES"]
+    assert len(calls) == 1, calls
+    log("phase 7c auto routing under EVCOUPLINGS_HBM_BYTES={} (symmetric "
+        "estimate {:.0f} MB > 0.9 x budget, asymmetric {:.0f} MB): routed "
+        "to the asymmetric fit, 3 Adam steps, run_plm {:.2f} s, status {!r}; "
+        "launches {}".format(budget, sym / 1e6, asym / 1e6, secs,
+                             res.optimization_status, json.dumps(counts)))
+    return out
+
+
+def mean_field_config(prefix, a2m, sequence_id, device=None):
+    config = pipeline_config(
+        prefix, a2m, sequence_id,
+        dict(extract_annotation=False, minimum_sequence_coverage=50,
+             minimum_column_coverage=70, compute_num_effective_seqs=True),
+        {}, device=device)
+    config["couplings"] = {
+        "protocol": "mean_field", "frequencies_file": None,
+        "focus_mode": True, "alphabet": None, "theta": 0.8,
+        "pseudo_count": 0.5, "min_sequence_distance": 6,
+        "ec_score_type": "cn", "scoring_model": "logistic_regression",
+        "reuse_ecs": False}
+    return config
+
+
+def read_mf_ec(path):
+    import pandas as pd
+
+    return pd.read_csv(path, sep=" ", header=None, names=[
+        "i", "A_i", "j", "A_j", "mi_raw", "mi_apc", "di", "cn"])
+
+
+def phase7d_mean_field(tmp, small, full, big_L=500):
+    """Mean-field DCA through execute_wrapped (align existing ->
+    couplings mean_field): card against host at the small synthetic, then
+    full width on the card; inversion times at the job's D = 20 L and at
+    D = 20 big_L (10000)."""
+    import torch
+
+    from evcouplings_torch.ops import frequencies as freq
+    from evcouplings_torch.ops import mean_field as mf
+
+    jobs = {}
+    for device in ("cuda", "cpu"):
+        root = os.path.join(tmp, "mf_small_" + device)
+        state, counts, secs = run_job(mean_field_config(
+            os.path.join(root, "job"), small, "TARGET_SEQ",
+            device=None if device == "cuda" else "cpu"))
+        jobs[device] = state
+        log("phase 7d mean-field small job on the {}: {:.2f} s, stages {}, "
+            "launches {}".format(device, secs,
+                                 json.dumps(runtime_seconds(state)),
+                                 json.dumps(counts)))
+        if device == "cuda":
+            assert counts["K1"] == 2, counts
+    card = read_mf_ec(jobs["cuda"]["raw_ec_file"])
+    host = read_mf_ec(jobs["cpu"]["raw_ec_file"])
+    assert (card.i.values == host.i.values).all()
+    assert (card.j.values == host.j.values).all()
+    ulp = {c: float(np.max(np.abs(card[c].values - host[c].values)))
+           for c in ("mi_raw", "mi_apc", "di", "cn")}
+    # printed to 6 decimals: at most one unit in the last place
+    assert all(v <= 1e-6 + 1e-12 for v in ulp.values()), ulp
+    assert_exact_rank_order(card, host, col="di", rtol=0, atol=1e-6)
+    log("phase 7d small mean-field job, card vs host: raw EC files within "
+        "{} (one unit in the 6th decimal at most), DI rank order exact for "
+        "pairs more than 1e-6 apart".format(json.dumps(ulp)))
+
+    before = (mf.direct_information.sweeps, mf.direct_information.syncs)
+    state, counts, secs = run_job(mean_field_config(
+        os.path.join(tmp, "mf_full", "job"), full, "TARGET"))
+    sweeps = mf.direct_information.sweeps - before[0]
+    syncs = mf.direct_information.syncs - before[1]
+    stages = runtime_seconds(state)
+    ec = read_mf_ec(state["raw_ec_file"])
+    L = state["num_sites"]
+    assert len(ec) == L * (L - 1) // 2 and np.isfinite(ec.di).all()
+    assert counts["K1"] == 2, counts
+    log("phase 7d mean-field full-width job N={} L={}: {:.2f} s, stages {}; "
+        "DI {} sweeps, {} host reads of the active flags; launches "
+        "{}".format(state["num_sequences"], state["num_sites"], secs,
+                    json.dumps(stages), sweeps, syncs, json.dumps(counts)))
+
+    # the stage's device pieces at this width, timed alone
+    from evcouplings_torch.couplings.model import CouplingsModel
+
+    model = CouplingsModel(state["model_file"], device="cuda")
+    C = mf.compute_covariance_matrix(model.regularized_f_i,
+                                     model.regularized_f_ij, device="cuda")
+    inv64 = cuda_ms(lambda: mf.invert_covariance(C), 3)
+    inv32 = cuda_ms(lambda: mf.invert_covariance_device(C), 3)
+    t = time.perf_counter()
+    mf.direct_information(model.J_ij, model.regularized_f_i, device="cuda")
+    torch.cuda.synchronize()
+    di_ms = (time.perf_counter() - t) * 1e3
+    del C
+
+    # D = 10000: a synthetic with L = 500 (q = 21, N = 4000), one f64
+    # inversion of 800 MB
+    rng = np.random.default_rng(SEED + 7)
+    codes = synthetic_codes(rng, 4000, big_L, 21, families=64, mutate=0.3,
+                            gap_rows=0.1, missing_rows=0.0)
+    codes_d = torch.as_tensor(codes, device="cuda")
+    w = np.ones(len(codes))
+    f_i = freq.frequencies(codes_d, w, 21)
+    f_ij = freq.pair_frequencies(codes_d, w, 21, f_i)
+    from evcouplings_torch.couplings.mean_field import (
+        regularize_frequencies, regularize_pair_frequencies,
+    )
+    C = mf.compute_covariance_matrix(
+        regularize_frequencies(f_i), regularize_pair_frequencies(f_ij),
+        device="cuda")
+    big64 = cuda_ms(lambda: mf.invert_covariance(C), 1)
+    big32 = cuda_ms(lambda: mf.invert_covariance_device(C), 1)
+    assert torch.isfinite(mf.invert_covariance(C)).all()
+    del C
+    log("phase 7d inversion of -C: D={} float64 {:.3f} ms, float32 {:.3f} "
+        "ms; D={} float64 {:.3f} ms, float32 {:.3f} ms; DI fixed point at "
+        "L={} ({} pairs) {:.2f} ms; the couplings stage took {:.2f} "
+        "s".format(20 * L, inv64, inv32, 20 * big_L, big64, big32, L,
+                   L * (L - 1) // 2, di_ms, stages["couplings"]))
+    return counts
+
+
+def run_job(config):
+    """One pipeline job through execute_wrapped, its kernel launches
+    counted from zero, and its final state; every file the final outcfg
+    names must exist. Returns (state, launches, seconds)."""
+    from evcouplings_torch.utils import pipeline
+    from evcouplings_torch.utils.config import (
+        iterate_files, read_config_file,
+    )
+
+    (state, secs), counts = counted(lambda: timed(
+        lambda: pipeline.execute_wrapped(**config)))
+    final = read_config_file(config["global"]["prefix"] + "_final.outcfg")
+    assert set(final) == set(state)
+    missing = [p for p, _, _ in iterate_files(final)
+               if not os.path.isfile(p)]
+    assert not missing, missing
+    return state, counts, secs
 
 
 def main():
@@ -628,34 +1155,10 @@ def main():
     # ---- phase 5b: where the time goes: one more fit of each mode under
     # torch.profiler; device time by kernel and the device's busy share of
     # the wall time (kernels, copies and fills on the one stream)
-    from torch.profiler import ProfilerActivity, profile
-
     for mode, kw in modes:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            run_plm(a2m, os.path.join(tmp, mode + "_prof_ECs.txt"),
-                    os.path.join(tmp, mode + "_prof.model"), **common, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        # user annotations (the fit's plm_step_chunk ranges) enclose
-        # kernels already counted: leave them out of the busy sum
-        kern = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count,
-                 e.key) for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA")
-                and not getattr(e, "is_user_annotation", False)]
-        busy = sum(ms for ms, _, _ in kern)
-        if busy == 0:
-            log("phase 5b {}: the profiler shows no device time (not "
-                "measured)".format(mode))
-            continue
-        top = sorted(kern, reverse=True)[:6]
-        log("phase 5b {} under the profiler: wall {:.3f} s, device busy "
-            "{:.3f} s ({:.1%}); top device time: {}".format(
-                mode, wall, busy / 1e3, busy / 1e3 / wall, "; ".join(
-                    "{} x{} {:.1f} ms".format(k[:60], c, ms)
-                    for ms, c, k in top)))
+        profile_device_time("phase 5b " + mode, lambda: run_plm(
+            a2m, os.path.join(tmp, mode + "_prof_ECs.txt"),
+            os.path.join(tmp, mode + "_prof.model"), **common, **kw))
 
     # per-step time of the production Adam step, fused epilogue on vs off
     # (two fits each, alternating; steps 5..19 of each fit)
@@ -679,36 +1182,9 @@ def main():
     # couplings `standard`), then the mutate protocol on its outputs
     import pandas as pd
 
-    from evcouplings_torch.utils import pipeline
-    from evcouplings_torch.utils.config import (
-        iterate_files, read_config_file,
-    )
     from evcouplings_torch.utils.system import insert_dir
 
-    counters = {"K1": k_reweight.neighbor_counts,
-                "K2": k_adam.fused_adam_update_cuda,
-                "K3": k_adam.fused_adam_update_presym_cuda,
-                "K4": k_seqdot.sequential_dots}
     not_produced = set()
-
-    def run_job(config):
-        """One job, its kernel launches counted from zero, and its final
-        state; every file the final outcfg names must exist."""
-        for c in counters.values():
-            c.launches = 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state = pipeline.execute_wrapped(**config)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        counts = {k: c.launches for k, c in counters.items()}
-        final = read_config_file(
-            config["global"]["prefix"] + "_final.outcfg")
-        assert set(final) == set(state)
-        missing = [p for p, _, _ in iterate_files(final)
-                   if not os.path.isfile(p)]
-        assert not missing, missing
-        return state, counts, secs
 
     # 6a: card against host at a small size (N=150, L=18). With this
     # config's lambda_J (lambda_J_times_Lq: 3.4, against the golden fit's
@@ -816,7 +1292,7 @@ def main():
     production = dict(sample_couplings, solver="adam",
                       precision="production", iterations=20,
                       steps_per_call=None)
-    pipeline_launches = dict.fromkeys(counters, 0)
+    pipeline_launches = dict.fromkeys(kernel_counts(), 0)
     for mode, couplings_kw in (("parity", sample_couplings),
                                ("production", production)):
         prefix = os.path.join(tmp, "full_" + mode, "job")
@@ -855,6 +1331,21 @@ def main():
             assert counts["K2"] > 0, counts
     log("phase 6 pipeline launches (both full-width jobs):",
         json.dumps(pipeline_launches))
+
+    # ---- phase 7: the couplings stage's other fit routes at full width:
+    # exact group-L1 (FISTA), checkpoint/resume, the asymmetric fit and
+    # mean-field DCA; each sub-phase counts its kernel launches from zero
+    t7 = time.perf_counter()
+    phase7 = {
+        "7a fista run_plm": phase7a_fista(tmp, a2m, common),
+        **{"7b " + k: v for k, v in phase7b_resume(
+            tmp, codes_fit, common["lambda_J"]).items()},
+    }
+    phase7c_asymmetric(tmp, a2m, codes_fit, common, gate)
+    phase7["7d mean-field full-width job"] = phase7d_mean_field(
+        tmp, small, full)
+    log("phase 7 launches by path: {}; phase 7 took {:.1f} s".format(
+        json.dumps(phase7), time.perf_counter() - t7))
 
     for k, row in rows.items():
         row["launches"] = launches[k]

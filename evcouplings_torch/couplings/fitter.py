@@ -1,6 +1,6 @@
 """
-In-process replacement for the external `plmc` binary (port of the
-symmetric path of evcouplings_tpu/couplings/fitter.py).
+In-process replacement for the external `plmc` binary (port of
+evcouplings_tpu/couplings/fitter.py, on one device).
 
 run_plm reads an alignment, reweights its sequences (K1 on the card),
 fits the Potts model by pseudolikelihood (ops/plm.py), computes weighted
@@ -35,6 +35,7 @@ from evcouplings_torch.ops import scores as _scores
 from evcouplings_torch.ops.encode import device_codes, pad_rows
 from evcouplings_torch.ops.frequencies import frequencies, pair_frequencies
 from evcouplings_torch.ops.plm import PlmConfig, fit_plm
+from evcouplings_torch.ops.plm_sites import fit_plm_asym
 from evcouplings_torch.ops.weights import num_cluster_members
 from evcouplings_torch.utils.system import (
     ResourceError, create_prefix_folders, verify_resources,
@@ -175,10 +176,22 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
     Same signature as the JAX package's run_plm, plus `device` (None:
     the CUDA device; raises without one, pass "cpu" to run on the host)
     and `fused_update` (PlmConfig.fused_update of the Adam solver).
-    `cpu` and `binary` are accepted and ignored. The symmetric
-    parametrization is ported; "asymmetric", and "auto" where it would
-    route there, raise NotImplementedError, as do a mesh and a
-    checkpoint file.
+    `cpu` and `binary` are accepted and ignored; a mesh raises
+    NotImplementedError (ROADMAP A18).
+
+    parametrization: "symmetric" (plmc semantics, ops/plm.py),
+    "asymmetric" (independent per-site regressions symmetrized after the
+    fit, ops/plm_sites.py; solver "adam" or per-site "lbfgs"), or "auto":
+    symmetric while its estimated peak device memory fits 90% of the
+    device (ops/plm.estimate_fit_hbm_bytes, device_hbm_budget), else
+    asymmetric. An explicit "symmetric" past the budget raises
+    MemoryError, as does an asymmetric fit past it; exact group-L1
+    (lambda_g > 0 without group_mode "smoothed") on the asymmetric path
+    raises ValueError. solver None picks the default: "fista" for exact
+    group-L1, else "lbfgs" (symmetric) or "adam" (asymmetric).
+
+    checkpoint_file / checkpoint_every: mid-fit snapshots and resume
+    (ops/plm.fit_plm).
 
     pad_sites_to / pad_rows_to round the fitted site / sequence counts
     up with inert padding (code -1 columns, weight-0 rows).
@@ -243,38 +256,75 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
         fit_weights = np.pad(weights, (0, fit_codes.shape[0] - N))
     N_fit = fit_codes.shape[0]
 
+    # each parametrization has its own default block size, resolved
+    # before the preflight so the estimate sees the fit's grad layout:
+    # the symmetric fit's (512 in parity mode, large blocks for the
+    # two-phase layout in bfloat16), and 1024 for the asymmetric fit,
+    # whose carried accumulator is small
+    if block_size is None:
+        sym_block = _symmetric_block_size(compute_dtype, N_fit)
+        asym_block = 1024
+    else:
+        sym_block = asym_block = int(block_size)
+
     if parametrization not in ("auto", "symmetric", "asymmetric"):
         raise ValueError(
             "Invalid parametrization: {!r} (valid: auto, symmetric, "
             "asymmetric)".format(parametrization))
-    if parametrization == "asymmetric":
-        raise NotImplementedError(
-            "the asymmetric (site-sharded) fit is not ported yet "
-            "(ROADMAP A15)")
+    requested = parametrization
 
+    # exact group-L1 needs the proximal solver; group_mode="smoothed"
+    # opts out of it (the smooth approximation, which LBFGS handles)
     wants_exact_group = lambda_g > 0 and group_mode != "smoothed"
-    if solver is None:
-        solver = "fista" if wants_exact_group else "lbfgs"
-    if block_size is None:
-        block_size = _symmetric_block_size(compute_dtype, N_fit)
-
-    # preflight: the symmetric fit must fit device memory
-    sym_cfg = PlmConfig(solver=solver, dtype=compute_dtype,
-                        block_size=int(block_size))
+    sym_default_solver = "fista" if wants_exact_group else "lbfgs"
     budget = ops_plm.device_hbm_budget(device)
-    est = ops_plm.estimate_fit_hbm_bytes(N_fit, L_fit, q, sym_cfg)
-    if est > 0.9 * budget:
-        if parametrization == "symmetric":
-            raise MemoryError(
-                "Symmetric PLM fit at L={} (q={}) needs an estimated {} of "
-                "device memory but only {} is available.".format(
-                    L, q, _fmt_bytes(est), _fmt_bytes(budget)))
-        raise NotImplementedError(
-            "parametrization='auto' would route this fit (L={}, q={}, "
-            "estimated {} of {}) to the asymmetric fit, which is not "
-            "ported yet (ROADMAP A15)".format(
-                L, q, _fmt_bytes(est), _fmt_bytes(budget)))
 
+    # preflight: the symmetric fit while its estimate fits 90% of the
+    # device; "auto" routes past that to the asymmetric fit
+    if parametrization in ("auto", "symmetric"):
+        sym_cfg = PlmConfig(solver=solver or sym_default_solver,
+                            dtype=compute_dtype, block_size=sym_block)
+        est = ops_plm.estimate_fit_hbm_bytes(N_fit, L_fit, q, sym_cfg)
+        if est > 0.9 * budget:
+            if parametrization == "symmetric":
+                raise MemoryError(
+                    "Symmetric PLM fit at L={} (q={}) needs an estimated {} "
+                    "of device memory but only {} is available. Use "
+                    "'parametrization: asymmetric', or leave parametrization "
+                    "unset to route automatically.".format(
+                        L, q, _fmt_bytes(est), _fmt_bytes(budget)))
+            parametrization = "asymmetric"
+        else:
+            parametrization = "symmetric"
+
+    asym = parametrization == "asymmetric"
+    if asym:
+        asym_cfg = PlmConfig(solver=solver or "adam", dtype=compute_dtype,
+                             block_size=asym_block)
+        est = ops_plm.estimate_fit_hbm_bytes(N_fit, L_fit, q, asym_cfg,
+                                             "asymmetric")
+        if est > budget:
+            raise MemoryError(
+                "Asymmetric PLM fit at L={} (q={}) needs an estimated {} of "
+                "device memory but only {} is available (sharding sites "
+                "over devices is ROADMAP A18).".format(
+                    L, q, _fmt_bytes(est), _fmt_bytes(budget)))
+        # no proximal solver on this path: refuse instead of quietly
+        # fitting the smoothed penalty
+        if wants_exact_group:
+            raise ValueError(
+                "The asymmetric fit supports only the SMOOTHED group-L1 "
+                "approximation, but lambda_group > 0 without "
+                "group_mode='smoothed' requests the exact penalty{}. Pass "
+                "group_mode='smoothed' to accept the approximation on this "
+                "path, or force parametrization='symmetric' (solver "
+                "'fista') if the coupling matrix fits device "
+                "memory.".format(
+                    " (auto-routing chose the asymmetric path for this "
+                    "problem size)" if requested == "auto" else ""))
+
+    if solver is None:
+        solver = "adam" if asym else sym_default_solver
     cfg = PlmConfig(
         lambda_h=float(lambda_h),
         lambda_J=float(lambda_J),
@@ -282,14 +332,15 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
         max_iter=int(iterations),
         **({} if conv_tol is None else {"conv_tol": float(conv_tol)}),
         solver=solver,
-        block_size=int(block_size),
+        block_size=asym_block if asym else sym_block,
         steps_per_call=int(steps_per_call),
         dtype=compute_dtype,
         precision=matmul_precision,
-        group_mode=group_mode or "prox",
+        # the asymmetric fit keeps the smoothed group penalty
+        group_mode="smoothed" if asym else (group_mode or "prox"),
         fused_update=fused_update,
     )
-    fit = fit_plm(
+    fit = (fit_plm_asym if asym else fit_plm)(
         fit_codes, fit_weights, q, cfg, callback=callback,
         checkpoint_file=checkpoint_file,
         checkpoint_every=checkpoint_every, device=device,

@@ -17,7 +17,7 @@ plmc_v2 layout (all little-endian):
   float[L,q]      h_i
   float[P,q,q]    f_ij upper triangle (i<j, row-major pair order)
   float[P,q,q]    J_ij upper triangle
-A negative lambda_h marks a mean-field model (not ported yet).
+A negative lambda_h marks a mean-field model (couplings/mean_field.py).
 """
 
 from collections.abc import Iterable
@@ -71,15 +71,19 @@ class CouplingsModel:
     """Potts model parameter container with EC scoring and mutation deltas."""
 
     def __init__(self, model_file=None, precision="float32",
-                 file_format="plmc_v2", **kwargs):
+                 file_format="plmc_v2", device=None, **kwargs):
         """Initialize from a binary model file (path or open handle).
 
-        Use from_params() to construct directly from in-memory arrays
-        (e.g. from the PLM fitter).
+        A plmc_v2 file of a mean-field model (negative lambda_h) gives a
+        couplings.mean_field.MeanFieldCouplingsModel, whose DI scores are
+        computed on `device` (None: the CUDA device). Use from_params() to
+        construct directly from in-memory arrays (e.g. from the PLM
+        fitter).
         """
         if model_file is None:
             # bare object; from_params fills the fields
             return
+        self.device = device
 
         is_file_obj = hasattr(model_file, "read")
 
@@ -218,9 +222,12 @@ class CouplingsModel:
 
         # negative lambda_h marks a mean-field model (stores -pseudocount)
         if self.lambda_h < 0:
-            raise NotImplementedError(
-                "mean-field models (negative lambda_h) are not ported yet "
-                "(ROADMAP A16)")
+            from evcouplings_torch.couplings.mean_field import (
+                MeanFieldCouplingsModel,
+            )
+
+            self.__class__ = MeanFieldCouplingsModel
+            self.transform_from_plmc_model()
 
     def _read_plmc_v1(self, f, precision, alphabet=None):
         """Read the legacy plmc_v1 format (reference model.py:402-512):

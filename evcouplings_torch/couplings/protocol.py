@@ -7,12 +7,16 @@ The external plmc invocation of the upstream pipeline is the in-process
 fitter (couplings/fitter.run_plm, on the job's `device`); the artifact
 contract (raw EC file, .model, iteration table, outcfg keys) is the JAX
 package's, including restart via reuse_ecs. The `standard` protocol is
-ported; `complex` (it needs the complex pipeline's concatenate stage,
-ROADMAP A19) and `mean_field` (ROADMAP A16) raise NotImplementedError.
+ported with every fit route of couplings/fitter.run_plm (symmetric or
+asymmetric parametrization, exact group-L1, mid-fit checkpoints), and
+`mean_field` (mean-field DCA, couplings/mean_field.py); `complex` raises
+NotImplementedError (it needs the complex pipeline's concatenate stage,
+ROADMAP A19), as do fits over more than one device (ROADMAP A18).
 """
 
 import os
 
+import numpy as np
 import pandas as pd
 
 from evcouplings_torch import BailoutException
@@ -24,10 +28,12 @@ from evcouplings_torch.align.alignment import (
     ALPHABET_PROTEIN_NOGAP_ORDERED,
     ALPHABET_PROTEIN_ORDERED,
     ALPHABET_RNA,
+    Alignment,
     read_fasta,
 )
 from evcouplings_torch.couplings import fitter as ct
 from evcouplings_torch.couplings import mapping, pairs
+from evcouplings_torch.couplings.mean_field import MeanFieldDCA
 from evcouplings_torch.couplings.model import CouplingsModel
 from evcouplings_torch.utils.config import (
     InvalidParameterError,
@@ -197,8 +203,8 @@ def infer_plmc(**kwargs):
         #                  parameters (with the adam solver, the fused
         #                  update K2 on the card)
         # parametrization: "auto" (symmetric while the memory estimate
-        # fits the device), "symmetric", or "asymmetric" (not ported
-        # yet, ROADMAP A15)
+        # fits the device, else asymmetric), "symmetric", or
+        # "asymmetric" (per-site regressions, ops/plm_sites.py)
         parametrization = kwargs.get("parametrization") or "auto"
         if parametrization not in ("auto", "symmetric", "asymmetric"):
             raise InvalidParameterError(
@@ -261,9 +267,9 @@ def infer_plmc(**kwargs):
             )
 
         # mid-fit crash recovery: checkpoint_every > 0 snapshots the
-        # fit every k iterations (run_plm raises: not ported yet,
-        # ROADMAP A8b). A completed fit removes any snapshot under
-        # this prefix.
+        # parameters and the full solver state every k iterations; a
+        # killed job resumes the fit bit for bit from the snapshot on
+        # re-run. A completed fit removes any snapshot under this prefix.
         checkpoint_every = int(kwargs.get("checkpoint_every") or 0)
         fit_checkpoint = prefix + ".fit_checkpoint.npz"
         if checkpoint_every > 0:
@@ -417,34 +423,6 @@ def standard(**kwargs):
     return outcfg
 
 
-def standard(**kwargs):
-    """Protocol: infer monomer ECs with the port's PLM fitter."""
-    check_required(
-        kwargs,
-        ["prefix", "min_sequence_distance", "theta", "frequencies_file"],
-    )
-
-    prefix = kwargs["prefix"]
-
-    outcfg, ecs, segments = infer_plmc(**kwargs)
-    model = CouplingsModel(outcfg["model_file"])
-
-    ecs, rescorer_outcfg_update = rescore_cn_score_ecs(
-        ecs, segments, outcfg, kwargs, score="cn"
-    )
-    outcfg.update(rescorer_outcfg_update)
-
-    # enrichment + line plots only make sense for a single segment
-    single = segments is None or len(segments) == 1
-    outcfg.update(_postprocess_inference(
-        ecs, kwargs, model, outcfg, prefix, score="score",
-        generate_enrichment=single, generate_line_plot=single,
-    ))
-
-    write_config_file(prefix + ".couplings_standard.outcfg", outcfg)
-    return outcfg
-
-
 def _postprocess_inference(ecs, kwargs, model, outcfg, prefix,
                            generate_line_plot=False,
                            generate_enrichment=False,
@@ -525,9 +503,91 @@ def _unported(name, item):
     return protocol
 
 
+def mean_field(**kwargs):
+    """Protocol: infer ECs by mean-field DCA (focus mode only), on the
+    job's `device` (None: the CUDA device). The covariance matrix is
+    inverted in float64 there; `device_inversion: True` inverts it in
+    float32 (the JAX package's device path)."""
+    check_required(kwargs, [
+        "prefix", "alignment_file", "segments", "focus_mode",
+        "focus_sequence", "theta", "pseudo_count", "alphabet",
+        "min_sequence_distance", "ec_score_type",
+    ])
+    if not kwargs["focus_mode"]:
+        raise InvalidParameterError(
+            "For now, mean field DCA can only be run in focus mode.")
+
+    device = resolve_device(kwargs.get("device"))
+    prefix = kwargs["prefix"]
+    outcfg = _ec_stage_outcfg(prefix, kwargs, prefix + ".model")
+
+    alignment_file = kwargs["alignment_file"]
+    verify_resources("Input alignment does not exist", alignment_file)
+    create_prefix_folders(prefix)
+    segments = _segments_from_config(kwargs)
+    alphabet = _resolve_alphabet(kwargs["alphabet"])
+    # one device runs the fit; the sharded inversion over more is A18
+    fit_devices = kwargs.get("fit_devices")
+    if (fit_devices is not None
+            and _resolve_fit_device_count(fit_devices, device) > 1):
+        raise NotImplementedError(
+            "fit_devices > 1 (the column-sharded covariance inversion) is "
+            "not ported yet (ROADMAP A18)")
+
+    input_alignment = Alignment.from_path(
+        alignment_file, "fasta", alphabet=alphabet, device=device)
+    model = MeanFieldDCA(input_alignment).fit(
+        theta=kwargs["theta"], pseudo_count=kwargs["pseudo_count"],
+        device=bool(kwargs.get("device_inversion", False)),
+    )
+
+    model.to_raw_ec_file(outcfg["raw_ec_file"])
+    if outcfg["model_file"] is not None:
+        model.to_file(outcfg["model_file"], file_format="plmc_v2")
+
+    for out_key, value in (
+        ("num_sites", model.L),
+        ("num_valid_sequences", model.N_valid),
+        ("effective_sequences", float(round(model.N_eff, 1))),
+        ("region_start", int(model.index_list[0])),
+    ):
+        outcfg[out_key] = value
+
+    # the mean-field raw EC file has four score columns
+    ecs = pd.read_csv(
+        outcfg["raw_ec_file"], sep=" ",
+        names=["i", "A_i", "j", "A_j", "mi_raw", "mi_apc", "di", "cn"],
+    )
+    ec_score_type = _validated_choice(
+        kwargs.get("ec_score_type", "cn"),
+        ("cn", "di", "mi_raw", "mi_apc"), "ec_score_type",
+    )
+    if ec_score_type == "cn":
+        # distribution-based rescoring only applies to CN scores
+        ecs, rescorer_outcfg_update = rescore_cn_score_ecs(
+            ecs, segments, outcfg, kwargs, score="cn")
+    else:
+        ecs = ecs.assign(
+            score=ecs[ec_score_type], probability=np.nan
+        ).sort_values(by="score", ascending=False)
+        rescorer_outcfg_update = {}
+
+    single = segments is None or len(segments) == 1
+    outcfg = {
+        **outcfg,
+        **rescorer_outcfg_update,
+        **_postprocess_inference(
+            ecs, kwargs, model, outcfg, prefix,
+            generate_enrichment=single, generate_line_plot=single,
+            score="score",
+        ),
+    }
+    write_config_file(prefix + ".couplings_meanfield.outcfg", outcfg)
+    return outcfg
+
+
 # complex ECs need the complex pipeline's concatenate stage
 complex = _unported("complex", "A19")
-mean_field = _unported("mean_field", "A16")
 
 # protocol registry: function names double as the config-facing names
 PROTOCOLS = {

@@ -37,10 +37,10 @@ bf16 operands, with float32 outputs on the gradient products
 operands instead), while the logits product keeps the compute dtype.
 Master parameters, optimizer moments and weights stay float32.
 
-Solvers: "lbfgs" (ops/lbfgs.py) and "adam" (the optax.adam formula;
-with fused_update="on", and "auto" on a CUDA device, the epilogue of
-each step is K2, the Triton kernel behind
-ops/plm_update.fused_adam_update).
+Solvers: "lbfgs" (ops/lbfgs.py), "adam" (the optax.adam formula; with
+fused_update="on", and "auto" on a CUDA device, the epilogue of each step
+is K2, the Triton kernel behind ops/plm_update.fused_adam_update), and
+"fista" (exact group-L1 by proximal steps, _make_fista_step).
 """
 
 import os
@@ -72,8 +72,8 @@ class PlmConfig:
     lambda_J: float = 16.0
     lambda_group: float = 0.0
     # group-L1 semantics when lambda_group > 0: "prox" is the exact
-    # nonsmooth penalty (solver "fista", not ported yet); "smoothed" is
-    # sqrt(||J_ij||^2 + group_eps) with lbfgs/adam
+    # nonsmooth penalty (solver "fista", blocks reach exact zeros);
+    # "smoothed" is sqrt(||J_ij||^2 + group_eps) with lbfgs/adam
     group_mode: str = "prox"
     group_eps: float = 1e-12
     max_iter: int = 100
@@ -428,6 +428,53 @@ def make_plm_value_and_grad(L, q, cfg, mesh=None, symmetric_params=False):
     return vg
 
 
+def make_plm_loss(L, q, cfg, mesh=None, symmetric_params=False):
+    """Build loss(params, codes, weights) -> 0-d tensor: the objective by
+    a per-site log-softmax (no gradient; FISTA's backtracking evaluates
+    it once per trial step).
+
+    params: {"J": (Lq, Lq), "h": (L, q)}; the sums run in the f32-or-wider
+    accumulation dtype whatever the compute dtype."""
+    _no_mesh(mesh)
+    dtype = _compute_dtype(cfg.dtype)
+    acc = _acc_dtype(dtype)
+    lq = L * q
+
+    def local_nll(J_eff, h_flat, codes, weights):
+        n_pad = codes.shape[0]
+        _check_rows(n_pad, cfg.block_size)
+        total = torch.zeros((), dtype=acc, device=J_eff.device)
+        for start in range(0, n_pad, cfg.block_size):
+            c = codes[start:start + cfg.block_size]
+            w = weights[start:start + cfg.block_size].to(dtype)
+            oh = one_hot(c, q, dtype=dtype).reshape(-1, lq)
+            logits = oh @ J_eff.T + h_flat[None, :]
+            logp = torch.log_softmax(
+                logits.reshape(-1, L, q), dim=-1).reshape(-1, lq)
+            per_seq = (oh * logp).sum(dim=1)
+            total = total - torch.dot(w.to(acc), per_seq.to(acc))
+        return total
+
+    def loss(params, codes, weights):
+        P_c = params["J"].to(dtype)
+        mask = _diag_block_mask(L, q, dtype, P_c.device)
+        if symmetric_params:
+            J_eff = P_c * mask
+        else:
+            J_eff = 0.5 * (P_c + P_c.T) * mask
+        h_c = params["h"].to(dtype)
+        value = local_nll(J_eff, h_c.reshape(lq), codes, weights)
+        reg = (cfg.lambda_h * torch.sum(h_c.to(acc) ** 2)
+               + cfg.lambda_J * 0.5 * torch.sum(J_eff.to(acc) ** 2))
+        if cfg.lambda_group > 0:
+            blocks = J_eff.to(acc).reshape(L, q, L, q)
+            reg = reg + cfg.lambda_group * 0.5 * torch.sum(torch.sqrt(
+                torch.sum(blocks ** 2, dim=(1, 3)) + cfg.group_eps))
+        return value + reg
+
+    return loss
+
+
 def _resolve_fused_update(cfg, mesh, master_dtype,
                           device=torch.device("cpu")):
     """Whether the Adam steps run their epilogue through K2.
@@ -454,6 +501,180 @@ def _resolve_fused_update(cfg, mesh, master_dtype,
     if cfg.fused_update != "auto":
         raise ValueError("Unknown fused_update: {}".format(cfg.fused_update))
     return eligible and torch.device(device).type == "cuda"
+
+
+def fit_fingerprint(codes, weights, num_symbols, cfg, device=None):
+    """Identity of a fit for checkpoint-resume safety: the data plus every
+    configuration field that shapes the optimization trajectory (the JAX
+    package's string, so a snapshot of either package resumes in the
+    other). max_iter, steps_per_call and the checkpoint cadence are left
+    out: resuming with a raised iteration cap is legitimate.
+
+    fused_update enters as its literal value, except that "auto" which
+    resolves on (an eligible Adam fit on a CUDA `device`) enters as "on":
+    the fused epilogue matches the unfused one only up to rounding, so a
+    snapshot of one must not resume in the other."""
+    import hashlib
+
+    fused = cfg.fused_update
+    if fused == "auto" and device is not None and _resolve_fused_update(
+            cfg, None, _acc_dtype(_compute_dtype(cfg.dtype)), device):
+        fused = "on"
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(codes, dtype=np.int8).tobytes())
+    h.update(np.asarray(weights, dtype=np.float64).tobytes())
+    h.update(repr((
+        int(num_symbols), cfg.lambda_h, cfg.lambda_J, cfg.lambda_group,
+        cfg.solver, cfg.adam_lr, cfg.block_size, cfg.dtype,
+        cfg.precision, cfg.memory_size, cfg.conv_tol, cfg.grad_layout,
+        fused,
+    ) + ((cfg.group_mode, cfg.group_eps)
+         if cfg.lambda_group > 0 else ())).encode())
+    return h.hexdigest()
+
+
+def _check_ckpt_fingerprint(ckpt, fingerprint, checkpoint_file):
+    """Reject a snapshot written by a different fit configuration
+    (snapshots without a fingerprint are accepted)."""
+    files = ckpt.files if hasattr(ckpt, "files") else list(ckpt)
+    if "fingerprint" not in files:
+        return
+    saved = str(ckpt["fingerprint"])
+    if saved != fingerprint:
+        raise ValueError(
+            "Checkpoint {} was written by a DIFFERENT fit configuration or "
+            "input data (fingerprint {}... vs {}...); delete it to start "
+            "this fit fresh instead of silently resuming a mixed-objective "
+            "optimization.".format(checkpoint_file, saved[:12],
+                                   fingerprint[:12]))
+
+
+def write_snapshot(path, arrays):
+    """Write a snapshot atomically: a temporary file, then os.replace."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def _host(t):
+    return t.detach().cpu().numpy()
+
+
+# LBFGS snapshot keys, each stored as "lbfgs_<key>" (the JAX package's)
+_LBFGS_KEYS = ("x", "s_hist", "y_hist", "rho", "gamma", "count", "nevals",
+               "value", "grad", "converged", "ls_failed")
+
+
+def snapshot_arrays(solver, params, state, iteration, fingerprint=None):
+    """The npz arrays of a symmetric fit's snapshot, under the JAX
+    package's keys: J, h, iteration, fingerprint, and the solver state
+    (adam_*: Adam moments and count; lbfgs_*: the flat master vector,
+    the (m, D) histories with zero rows for empty slots, the carried
+    evaluation and flags; fista_*: y, x_prev, tk, step, f_prev)."""
+    arrays = {"J": _host(params["J"]), "h": _host(params["h"]),
+              "iteration": np.asarray(iteration)}
+    if fingerprint is not None:
+        arrays["fingerprint"] = np.asarray(fingerprint)
+    if state is None:
+        return arrays
+    if solver == "adam":
+        arrays.update(
+            adam_count=np.asarray(state["count"], dtype=np.int32),
+            adam_mu_J=_host(state["mu"]["J"]),
+            adam_mu_h=_host(state["mu"]["h"]),
+            adam_nu_J=_host(state["nu"]["J"]),
+            adam_nu_h=_host(state["nu"]["h"]))
+    elif solver == "lbfgs":
+        x, ls = state
+        zero = torch.zeros_like(x)
+        arrays.update(
+            lbfgs_x=_host(x),
+            lbfgs_s_hist=_host(torch.stack(
+                [zero if s is None else s for s in ls["s_hist"]])),
+            lbfgs_y_hist=_host(torch.stack(
+                [zero if y is None else y for y in ls["y_hist"]])),
+            lbfgs_rho=_host(torch.stack(ls["rho"])),
+            lbfgs_gamma=_host(ls["gamma"]),
+            lbfgs_count=np.asarray(ls["count"], dtype=np.int32),
+            lbfgs_nevals=np.asarray(ls["nevals"], dtype=np.int32),
+            lbfgs_value=_host(ls["value"]),
+            lbfgs_grad=_host(ls["grad"]),
+            lbfgs_converged=np.asarray(bool(ls["converged"])),
+            lbfgs_ls_failed=np.asarray(bool(ls["ls_failed"])))
+    elif solver == "fista":
+        arrays.update(
+            fista_yJ=_host(state["y"]["J"]), fista_yh=_host(state["y"]["h"]),
+            fista_xprevJ=_host(state["x_prev"]["J"]),
+            fista_xprevh=_host(state["x_prev"]["h"]),
+            fista_tk=_host(state["tk"]), fista_step=_host(state["step"]),
+            fista_fprev=_host(state["f_prev"]))
+    return arrays
+
+
+def restore_snapshot(ckpt, solver, L, q, dtype, device, memory_size=5):
+    """A symmetric fit's resume state from snapshot arrays (an npz file or
+    a mapping with the JAX package's keys): (params, solver state or None,
+    iteration). The solver state is None where the snapshot carries none
+    for `solver` (a parameter-only snapshot; an LBFGS snapshot of another
+    memory size): the fit then restarts its solver from the parameters.
+
+    J and the Adam J-moments are symmetrized (a bitwise no-op for the
+    snapshots a symmetric fit writes)."""
+    files = set(ckpt.files if hasattr(ckpt, "files") else ckpt)
+    lq = L * q
+    if ckpt["J"].shape != (lq, lq) or ckpt["h"].shape != (L, q):
+        raise ValueError(
+            "Checkpoint does not match problem shape (L={}, q={})".format(
+                L, q))
+
+    def sym(a):
+        a = np.asarray(a, dtype=np.float64)
+        return torch.as_tensor(0.5 * (a + a.T)).to(device=device,
+                                                    dtype=dtype)
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+
+    params = {"J": sym(ckpt["J"]), "h": put(ckpt["h"])}
+    state = None
+    if solver == "adam" and "adam_mu_J" in files:
+        state = {"count": int(ckpt["adam_count"]),
+                 "mu": {"J": sym(ckpt["adam_mu_J"]),
+                        "h": put(ckpt["adam_mu_h"])},
+                 "nu": {"J": sym(ckpt["adam_nu_J"]),
+                        "h": put(ckpt["adam_nu_h"])}}
+    elif solver == "lbfgs":
+        saved = {k[len("lbfgs_"):] for k in files if k.startswith("lbfgs_")}
+        if (saved == set(_LBFGS_KEYS)
+                and ckpt["lbfgs_s_hist"].shape[0] == memory_size
+                and ckpt["lbfgs_x"].shape[0] == lq * lq + lq):
+            x = put(ckpt["lbfgs_x"])
+            rho = [put(r) for r in ckpt["lbfgs_rho"]]
+            # a zero rho marks an empty slot (the port keeps None there)
+            s_hist = [None if float(r) == 0 else put(s)
+                      for r, s in zip(rho, ckpt["lbfgs_s_hist"])]
+            y_hist = [None if float(r) == 0 else put(y)
+                      for r, y in zip(rho, ckpt["lbfgs_y_hist"])]
+            state = (x, {
+                "s_hist": s_hist, "y_hist": y_hist, "rho": rho,
+                "gamma": put(ckpt["lbfgs_gamma"]),
+                "count": int(ckpt["lbfgs_count"]),
+                "nevals": int(ckpt["lbfgs_nevals"]),
+                "value": put(ckpt["lbfgs_value"]),
+                "grad": put(ckpt["lbfgs_grad"]),
+                "converged": bool(ckpt["lbfgs_converged"]),
+                "ls_failed": bool(ckpt["lbfgs_ls_failed"]),
+            })
+    elif solver == "fista" and "fista_yJ" in files:
+        state = {
+            "y": {"J": put(ckpt["fista_yJ"]), "h": put(ckpt["fista_yh"])},
+            "x_prev": {"J": put(ckpt["fista_xprevJ"]),
+                       "h": put(ckpt["fista_xprevh"])},
+            "tk": put(float(ckpt["fista_tk"])),
+            "step": put(float(ckpt["fista_step"])),
+            "f_prev": put(float(ckpt["fista_fprev"])),
+        }
+    return params, state, int(ckpt["iteration"])
 
 
 def _lbfgs_dots(compute_dtype, precision):
@@ -555,6 +776,121 @@ def _make_fused_adam_step(nll_vg, L, q, cfg, dtype):
     return step
 
 
+# FISTA steps taken and the backtracking trials beyond each step's first
+# (every trial is one objective evaluation and one host read of its
+# acceptance test); read by chip_smoke.py
+fista_counts = {"steps": 0, "backtracks": 0}
+
+# objective evaluations a FISTA step tries before it takes the last trial
+_FISTA_MAX_BACKTRACKS = 30
+
+
+def _make_fista_step(L, q, cfg):
+    """One FISTA step for the EXACT group-L1 objective (group_mode
+    "prox"):
+
+        F(theta) = NLL + l2 + lambda_group * sum_{i<j} ||J_ij||_F
+
+    The smooth part is the closed-form value and gradient with
+    lambda_group stripped; the prox is group soft-thresholding of the
+    q x q blocks, which reaches exact zeros. Backtracking halves the step
+    until the prox point meets the smooth part's quadratic upper bound
+    (at most _FISTA_MAX_BACKTRACKS evaluations, the last trial taken if none
+    passes), then the momentum restarts when the objective rose.
+
+    The flat (Lq, Lq) matrix stores each pair twice, so in the shared
+    metric the smooth J gradient is 2 dP and the J part of squared norms
+    is halved. The dots are torch.dot (float64 in float64 fits): FISTA's
+    dots pin no fixture's rounding, so they do not go through K4.
+
+    Returns step(params, state, codes, weights, oh_aug) -> (params, state,
+    metrics row [full objective, prox-gradient-mapping norm, ||theta||,
+    ||h||, ||J||]); the mapping norm plays ||g||'s part in the fit loop's
+    convergence test.
+    """
+    from dataclasses import replace
+
+    lam = cfg.lambda_group
+    smooth_cfg = replace(cfg, lambda_group=0.0)
+    vg = make_plm_value_and_grad(L, q, smooth_cfg, symmetric_params=True)
+    loss = make_plm_loss(L, q, smooth_cfg, symmetric_params=True)
+    acc = _acc_dtype(_compute_dtype(cfg.dtype))
+    lq = L * q
+    # acceptance slack scaled to the accumulation dtype's resolution: f_t
+    # and f_y come from two differently ordered reductions
+    bt_slack = max(1e-12, 64.0 * torch.finfo(acc).eps)
+
+    def block_norms(P):
+        return torch.sqrt(torch.sum(P.reshape(L, q, L, q) ** 2, dim=(1, 3)))
+
+    def vdot(a, b):
+        return torch.dot(a.reshape(-1), b.reshape(-1))
+
+    def prox_from(y, gJ, gh, s):
+        P = y["J"] - (2.0 * s) * gJ
+        h = y["h"] - s * gh
+        if lam == 0:
+            return {"J": P, "h": h}
+        # divisor floor representable in the master dtype (a 1e-300
+        # literal flushes to 0 in float32: 0/0 on zero blocks)
+        tiny = torch.finfo(P.dtype).tiny
+        scale = torch.clamp(
+            1.0 - (s * lam) / torch.clamp(block_norms(P), min=tiny), min=0.0)
+        blocks = P.reshape(L, q, L, q) * scale[:, None, :, None]
+        return {"J": blocks.reshape(lq, lq), "h": h}
+
+    def step(params, state, codes, weights, oh_aug):
+        y, x_prev = state["y"], state["x_prev"]
+        tk, s = state["tk"], state["step"]
+        f_y, grads = vg(y, codes, weights, oh_aug)
+        f_y = f_y.to(acc)
+        gJ, gh = grads["J"], grads["h"]
+        slack = bt_slack * torch.clamp(torch.abs(f_y), min=1.0)
+
+        def try_step(s):
+            x_t = prox_from(y, gJ, gh, s)
+            f_t = loss(x_t, codes, weights).to(acc)
+            dP, dh = x_t["J"] - y["J"], x_t["h"] - y["h"]
+            inner = vdot(gJ, dP) + vdot(gh, dh)
+            sqn = (0.5 * vdot(dP, dP) + vdot(dh, dh)).to(acc)
+            bound = f_y + inner + sqn / (2.0 * s) + slack
+            return x_t, f_t, sqn, bool(f_t <= bound)
+
+        x_new, f_new, sqn, ok = try_step(s)
+        k = 1
+        while not ok and k < _FISTA_MAX_BACKTRACKS:
+            s = s * 0.5
+            x_new, f_new, sqn, ok = try_step(s)
+            k += 1
+        fista_counts["steps"] += 1
+        fista_counts["backtracks"] += k - 1
+
+        full = f_new + lam * 0.5 * torch.sum(block_norms(x_new["J"]))
+        gmap = torch.sqrt(torch.clamp(sqn, min=0.0)) / s
+        xnorm = torch.sqrt(0.5 * vdot(x_new["J"], x_new["J"])
+                           + vdot(x_new["h"], x_new["h"]))
+
+        # momentum with function-value adaptive restart
+        restart = full > state["f_prev"]
+        one = torch.ones((), dtype=acc, device=full.device)
+        tk_next = torch.where(restart, one,
+                              0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * tk * tk)))
+        beta = torch.where(restart, torch.zeros_like(one),
+                           (tk - 1.0) / tk_next)
+        y_new = {k: a + beta.to(a.dtype) * (a - x_prev[k])
+                 for k, a in x_new.items()}
+        # optimistic growth; backtracking re-clamps next step
+        state = {"y": y_new, "x_prev": x_new, "tk": tk_next,
+                 "step": (s * 1.3).to(acc), "f_prev": full}
+        row = torch.stack([
+            full.float(), gmap.float(), xnorm.float(),
+            torch.linalg.vector_norm(x_new["h"]).float(),
+            torch.linalg.vector_norm(x_new["J"]).float()])
+        return x_new, state, row
+
+    return step
+
+
 @dataclass
 class PlmFitResult:
     J_ij: np.ndarray            # (L, L, q, q) float64, zero diagonal
@@ -568,7 +904,7 @@ class PlmFitResult:
     ls_failed: bool = False
 
 
-def _check_config(cfg, mesh, checkpoint_file):
+def _check_config(cfg, mesh):
     if cfg.group_mode not in ("prox", "smoothed"):
         raise ValueError("Unknown group_mode: {}".format(cfg.group_mode))
     if cfg.solver not in ("lbfgs", "adam", "fista"):
@@ -584,17 +920,9 @@ def _check_config(cfg, mesh, checkpoint_file):
         raise ValueError(
             "lambda_group > 0 with solver '{}' would silently apply the "
             "SMOOTHED group-L1 approximation, not the exact nonsmooth "
-            "penalty. Opt in to the smooth approximation explicitly "
-            "with group_mode='smoothed' (the exact penalty needs solver "
-            "'fista').".format(cfg.solver))
-    if cfg.solver == "fista":
-        raise NotImplementedError(
-            "solver='fista' (exact group-L1) is not ported yet "
-            "(ROADMAP A8a)")
-    if checkpoint_file is not None:
-        raise NotImplementedError(
-            "checkpoint_file (mid-fit checkpoint / resume) is not ported "
-            "yet (ROADMAP A8b)")
+            "penalty. Use solver='fista' (exact proximal handling), or opt "
+            "in to the smooth approximation explicitly with "
+            "group_mode='smoothed'.".format(cfg.solver))
     _no_mesh(mesh)
 
 
@@ -609,18 +937,25 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
     weights : (N,) float array of sequence weights
     num_symbols : alphabet size q
     cfg : PlmConfig
-    mesh, checkpoint_file, checkpoint_every : accepted for the JAX
-        package's signature; a mesh or a checkpoint file raises
-        NotImplementedError (not ported yet)
+    mesh : accepted for the JAX package's signature; a mesh raises
+        NotImplementedError (ROADMAP A18)
     callback : optional fn(iteration_record_dict) for progress streaming
+    checkpoint_file : optional path; every `checkpoint_every` iterations
+        the parameters, the full solver state (Adam moments; the LBFGS
+        flat vector, history and carried evaluation; the FISTA momentum
+        state) and the iteration count are written there atomically, and
+        an existing file resumes the fit bit for bit. The file is the JAX
+        package's snapshot (same keys and fingerprint): a snapshot of
+        either package resumes in the other. A snapshot of a different
+        fit configuration or data raises ValueError.
+    checkpoint_every : checkpoint interval in iterations
     device : torch device (None: the CUDA device; raises without one)
 
     Returns
     -------
     PlmFitResult
     """
-    del checkpoint_every
-    _check_config(cfg, mesh, checkpoint_file)
+    _check_config(cfg, mesh)
     device = resolve_device(device)
     codes = np.asarray(codes)
     weights = np.asarray(weights, dtype=np.float64)
@@ -652,6 +987,18 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
     }
     steps_per_call = max(1, int(cfg.steps_per_call))
 
+    # resume from a snapshot if one exists
+    start_iter = 0
+    resumed = None
+    fingerprint = (fit_fingerprint(codes, weights, q, cfg, device)
+                   if checkpoint_file is not None else None)
+    if checkpoint_file is not None and os.path.exists(checkpoint_file):
+        ckpt = np.load(checkpoint_file)
+        # the shape check (in restore_snapshot) comes first
+        params, resumed, start_iter = restore_snapshot(
+            ckpt, cfg.solver, L, q, dtype, device, cfg.memory_size)
+        _check_ckpt_fingerprint(ckpt, fingerprint, checkpoint_file)
+
     with matmul_precision(cfg.precision):
         if cfg.solver == "lbfgs":
             def _unflatten_x(x):
@@ -668,28 +1015,46 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
                 vg_flat, m=cfg.memory_size, steps_per_call=steps_per_call,
                 conv_tol=cfg.conv_tol, norm_split=dsize,
                 dot=dot, dots=dots)
-            x0 = torch.cat([params["J"].reshape(-1),
-                            params["h"].reshape(-1)])
-            value0, grad0 = vg_flat(x0, codes_d, w_d, oh_d)
-            state = (x0, init_lbfgs_state(x0, value0, grad0,
-                                          m=cfg.memory_size))
+            if resumed is not None:
+                state = resumed
+            else:
+                # a parameter-only snapshot restarts the history here
+                x0 = torch.cat([params["J"].reshape(-1),
+                                params["h"].reshape(-1)])
+                value0, grad0 = vg_flat(x0, codes_d, w_d, oh_d)
+                state = (x0, init_lbfgs_state(x0, value0, grad0,
+                                              m=cfg.memory_size))
 
             def run_chunk(params, state):
                 x, lstate = state
                 x, lstate, metrics = lb_chunk(x, lstate, codes_d, w_d, oh_d)
                 return _unflatten_x(x), (x, lstate), metrics
         else:
-            zeros = {k: torch.zeros_like(v) for k, v in params.items()}
-            state = {"count": 0, "mu": zeros,
-                     "nu": {k: torch.zeros_like(v) for k, v in zeros.items()}}
-            if _resolve_fused_update(cfg, mesh, dtype, codes_d.device):
-                step = _make_fused_adam_step(
-                    make_plm_nll_vg(L, q, cfg), L, q, cfg, compute_dtype)
-                state["J_aug"] = _build_j_aug(
-                    params, L, q, compute_dtype, _augmented_width(lq),
-                    symmetric=True)
+            if cfg.solver == "fista":
+                step = _make_fista_step(L, q, cfg)
+                state = resumed or {
+                    "y": params, "x_prev": params,
+                    "tk": torch.ones((), dtype=dtype, device=device),
+                    "step": torch.ones((), dtype=dtype, device=device),
+                    "f_prev": torch.full((), float("inf"), dtype=dtype,
+                                         device=device),
+                }
             else:
-                step = _make_adam_step(vg_fn, cfg)
+                state = resumed or {
+                    "count": 0,
+                    "mu": {k: torch.zeros_like(v) for k, v in params.items()},
+                    "nu": {k: torch.zeros_like(v) for k, v in params.items()},
+                }
+                if _resolve_fused_update(cfg, mesh, dtype, device):
+                    step = _make_fused_adam_step(
+                        make_plm_nll_vg(L, q, cfg), L, q, cfg, compute_dtype)
+                    # carried across steps; from the masters it is bitwise
+                    # the matrix K2 emits, so a resumed fit rebuilds it
+                    state["J_aug"] = _build_j_aug(
+                        params, L, q, compute_dtype, _augmented_width(lq),
+                        symmetric=True)
+                else:
+                    step = _make_adam_step(vg_fn, cfg)
 
             def run_chunk(params, state):
                 rows = []
@@ -699,9 +1064,16 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
                     rows.append(row)
                 return params, state, torch.stack(rows)
 
-        (params, table, it, converged, ls_failed, value,
+        save = None
+        if checkpoint_file is not None:
+            def save(params, state, iteration):
+                write_snapshot(checkpoint_file, snapshot_arrays(
+                    cfg.solver, params, state, iteration, fingerprint))
+
+        (params, state, table, it, converged, ls_failed, value,
          last) = _fit_loop(run_chunk, params, state, cfg, steps_per_call,
-                           callback)
+                           callback, start_iter, save, checkpoint_every,
+                           resumed is not None)
         if cfg.solver == "adam":
             # Adam rows record fx at the PRE-update iterate; one more
             # evaluation prices the parameters actually returned
@@ -711,7 +1083,13 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
             # chunk may overshoot max_iter with live steps)
             value = float(last[-1][0])
         elif np.isnan(value):
-            value = float(vg_fn(params, codes_d, w_d, oh_d)[0])
+            # the loop never dispatched (a resume at max_iter, or a frozen
+            # resumed state): the FISTA state carries the full nonsmooth
+            # objective of its last iterate, which vg_fn would smooth
+            f_prev = (float(state["f_prev"]) if cfg.solver == "fista"
+                      else float("nan"))
+            value = (f_prev if np.isfinite(f_prev)
+                     else float(vg_fn(params, codes_d, w_d, oh_d)[0]))
 
     P_mat = params["J"].detach().to("cpu", torch.float64).numpy()
     J_ij = unflatten_J(0.5 * (P_mat + P_mat.T), L, q)
@@ -719,6 +1097,8 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
         J_ij=J_ij,
         h_i=params["h"].detach().to("cpu", torch.float64).numpy(),
         iteration_table=table,
+        # total iterations the returned parameters received, resumed
+        # ones included
         num_iter=it,
         converged=converged,
         final_loss=value,
@@ -726,18 +1106,36 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
     )
 
 
-def _fit_loop(run_chunk, params, state, cfg, steps_per_call, callback):
-    """Dispatch chunks until max_iter, convergence or a linesearch
-    failure, building the iteration table (plmc's per-iteration log).
+def _fit_loop(run_chunk, params, state, cfg, steps_per_call, callback,
+              start_iter=0, save=None, checkpoint_every=50, resumed=False):
+    """Dispatch chunks from start_iter until max_iter, convergence or a
+    linesearch failure, building the iteration table (plmc's
+    per-iteration log); with `save`, snapshot every checkpoint_every
+    iterations and at the end. `resumed`: the solver state came from a
+    snapshot.
 
-    Returns (params, table, iterations, converged, ls_failed, last
+    Returns (params, state, table, iterations, converged, ls_failed, last
     recorded fx, last chunk's metrics or None)."""
     table = []
     converged = ls_failed = False
     value = float("nan")
     t0 = time.time()
-    it = 0
+    it = last_ckpt = start_iter
     metrics = None
+    if cfg.solver == "lbfgs" and resumed:
+        # a resumed state that already converged or froze must not run a
+        # chunk of pass-throughs: they would add duplicate rows and move
+        # the snapshot's iteration count
+        x, ls = state
+        g = ls["grad"].double()
+        xd = x.double()
+        if ls["ls_failed"]:
+            ls_failed = True
+        elif ls["converged"] or bool(
+                torch.sqrt(torch.dot(g, g))
+                <= cfg.conv_tol * max(1.0, float(torch.sqrt(
+                    torch.dot(xd, xd))))):
+            converged = True
     # LBFGS rows carry the linesearch-failure flag in column 3
     ls_col = 3 if cfg.solver == "lbfgs" else None
     while it < cfg.max_iter and not converged and not ls_failed:
@@ -776,4 +1174,20 @@ def _fit_loop(run_chunk, params, state, cfg, steps_per_call, callback):
             break
         if cfg.solver == "lbfgs" and not converged and state[1]["converged"]:
             converged = True
-    return params, table, it, converged, ls_failed, value, metrics
+        last_ckpt = _checkpoint(save, it, last_ckpt, checkpoint_every,
+                                params, state)
+    _checkpoint(save, it, last_ckpt, checkpoint_every, params, state,
+                final=True)
+    return params, state, table, it, converged, ls_failed, value, metrics
+
+
+def _checkpoint(save, it, last_ckpt, every, *args, final=False):
+    """The fit loops' snapshot cadence: call save(*args, it) once `every`
+    iterations have passed since the snapshot at last_ckpt (with `final`,
+    at the end of the fit: once any has). No-op when save is None.
+    Returns the iteration of the latest snapshot."""
+    due = it > last_ckpt if final else it - last_ckpt >= every
+    if save is None or not due:
+        return last_ckpt
+    save(*args, it)
+    return it

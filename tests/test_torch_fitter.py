@@ -6,6 +6,7 @@ order (tests/test_golden_regression.py)."""
 import os
 
 import numpy as np
+import pandas as pd
 import pytest
 
 from evcouplings_tpu.couplings.fitter import run_plm as jax_run_plm
@@ -161,16 +162,14 @@ def test_site_and_row_padding_is_inert(tmp_path):
 
 
 def test_unported_parametrizations_raise(tmp_path, monkeypatch):
+    """What still raises: a mesh (ROADMAP A18), an unknown
+    parametrization, and an explicit symmetric fit past the memory
+    budget."""
     a2m = os.path.join(GOLDEN, "golden.a2m")
     kw = dict(device="cpu", focus_seq="TARGET_SEQ/11-28")
-    with pytest.raises(NotImplementedError, match="A15"):
-        run_plm(a2m, str(tmp_path / "e.txt"), parametrization="asymmetric",
-                **kw)
-    # a fit past the memory budget: "auto" would route to the
-    # asymmetric fit, an explicit "symmetric" refuses to start
+    with pytest.raises(NotImplementedError, match="A18"):
+        run_plm(a2m, str(tmp_path / "e.txt"), mesh=object(), **kw)
     monkeypatch.setenv("EVCOUPLINGS_HBM_BYTES", "1e5")
-    with pytest.raises(NotImplementedError, match="A15"):
-        run_plm(a2m, str(tmp_path / "e.txt"), **kw)
     with pytest.raises(MemoryError):
         run_plm(a2m, str(tmp_path / "e.txt"), parametrization="symmetric",
                 **kw)
@@ -220,3 +219,104 @@ def test_golden_fit_ulp_sensitivity(tmp_path, monkeypatch):
             _check_models(b, a)
     print("golden fit drift under 1-ulp gradient noise:", drift)
     assert drift[40]["J_ij"] <= 1e-3 and drift[40]["h_i"] <= 1e-2
+
+
+class _Routed(Exception):
+    """Raised by the stand-in fits below, carrying what was called."""
+
+
+def _route(monkeypatch, budget, **kw):
+    """The fit each package's run_plm picks on golden.a2m under a
+    simulated device budget (EVCOUPLINGS_HBM_BYTES): ("symmetric" or
+    "asymmetric", solver, block size, group_mode), or the exception type
+    the preflight raised."""
+    import evcouplings_tpu.couplings.fitter as jax_fitter
+    import evcouplings_tpu.ops.plm_sites as jax_sites
+    import evcouplings_torch.couplings.fitter as fitter
+
+    def stand_in(kind):
+        def fit(codes, weights, q, cfg, **_):
+            raise _Routed((kind, cfg.solver, cfg.block_size,
+                           cfg.group_mode))
+        return fit
+
+    monkeypatch.setenv("EVCOUPLINGS_HBM_BYTES", str(budget))
+    monkeypatch.setattr(jax_fitter, "fit_plm", stand_in("symmetric"))
+    monkeypatch.setattr(jax_sites, "fit_plm_asym", stand_in("asymmetric"))
+    monkeypatch.setattr(fitter, "fit_plm", stand_in("symmetric"))
+    monkeypatch.setattr(fitter, "fit_plm_asym", stand_in("asymmetric"))
+    a2m = os.path.join(GOLDEN, "golden.a2m")
+    out = []
+    for fn, extra in ((run_plm, {"device": "cpu"}), (jax_run_plm, {})):
+        try:
+            fn(a2m, os.devnull, focus_seq="TARGET_SEQ/11-28", **kw, **extra)
+        except _Routed as r:
+            out.append(r.args[0])
+        except (MemoryError, ValueError) as e:
+            out.append(type(e).__name__)
+    return out
+
+
+@pytest.mark.parametrize("budget,kw,want", [
+    (10 ** 12, {}, ("symmetric", "lbfgs", 512, "prox")),
+    (10 ** 12, {"lambda_g": 0.5}, ("symmetric", "fista", 512, "prox")),
+    (10 ** 12, {"lambda_g": 0.5, "group_mode": "smoothed"},
+     ("symmetric", "lbfgs", 512, "smoothed")),
+    (10 ** 12, {"compute_dtype": "bfloat16"},
+     ("symmetric", "lbfgs", 512, "prox")),
+    (1e7, {}, ("asymmetric", "adam", 1024, "smoothed")),
+    (1.3e7, {"solver": "lbfgs", "block_size": 64},
+     ("asymmetric", "lbfgs", 64, "smoothed")),
+    (1e7, {"parametrization": "symmetric"}, "MemoryError"),
+    # FISTA's smaller estimate still fits where LBFGS's does not
+    (1e7, {"lambda_g": 0.5}, ("symmetric", "fista", 512, "prox")),
+    (10 ** 12, {"parametrization": "asymmetric", "lambda_g": 0.5},
+     "ValueError"),
+    (10 ** 12, {"parametrization": "asymmetric", "lambda_g": 0.5,
+                "group_mode": "smoothed"},
+     ("asymmetric", "adam", 1024, "smoothed")),
+    (1e5, {}, "MemoryError"),
+])
+def test_routing_matches_jax(monkeypatch, budget, kw, want):
+    """The preflight: symmetric while its estimate fits 0.9 x budget,
+    "auto" routes past it to the asymmetric fit (MemoryError past the
+    budget there), exact group-L1 refused on the asymmetric path, and
+    each parametrization's default solver and block size."""
+    got, jax_got = _route(monkeypatch, budget, **kw)
+    assert got == jax_got == want
+
+
+def test_parse_plmc_log_matches_jax():
+    from evcouplings_tpu.couplings.tools import parse_plmc_log as jax_parse
+    from evcouplings_torch.couplings.tools import parse_plmc_log
+    from test_couplings_tools import PLMC_LOG
+
+    for log in (PLMC_LOG, "500 valid sequences out of 600\n"
+                "Effective number of samples: 123.4\n"
+                "Gradient optimization: Max iterations reached\n"):
+        (df, stats), (jdf, jstats) = parse_plmc_log(log), jax_parse(log)
+        assert stats == jstats
+        if jdf is None:
+            assert df is None
+        else:
+            pd.testing.assert_frame_equal(df, jdf)
+    assert parse_plmc_log(PLMC_LOG)[1][0] == 1
+    with pytest.raises(KeyError):
+        parse_plmc_log("not a plmc log at all")
+
+
+def test_run_plmc_delegates_to_run_plm(tmp_path):
+    from evcouplings_torch.couplings.tools import PlmcResult, run_plmc
+
+    a2m = os.path.join(GOLDEN, "golden.a2m")
+    res = run_plmc(a2m, str(tmp_path / "ec.txt"), str(tmp_path / "m.model"),
+                   focus_seq="TARGET_SEQ/11-28", theta=0.8, iterations=5,
+                   lambda_J=16.15, binary="/no/such/plmc", cpu=4,
+                   device="cpu")
+    assert isinstance(res, PlmcResult)
+    want = run_plm(a2m, str(tmp_path / "ec2.txt"),
+                   str(tmp_path / "m2.model"), focus_seq="TARGET_SEQ/11-28",
+                   theta=0.8, iterations=5, lambda_J=16.15, device="cpu")
+    assert (tmp_path / "ec.txt").read_text() == \
+        (tmp_path / "ec2.txt").read_text()
+    assert res.num_valid_seqs == want.num_valid_seqs

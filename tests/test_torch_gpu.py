@@ -154,3 +154,59 @@ def test_k1_many_symbols(cuda):
     m = np.random.default_rng(1).integers(0, 45, size=(200, 30))
     m[::3] = m[0]
     _k1_check(cuda, m, 0.6)
+
+
+@pytest.mark.parametrize("solver,extra", [
+    ("lbfgs", {}),                                   # parity: K4 dots
+    ("adam", {"dtype": "bfloat16"}),                 # fused "auto": K2
+    ("fista", {"lambda_group": 0.5}),
+])
+def test_resume_is_bitwise_on_the_card(cuda, tmp_path, solver, extra):
+    """Stopped at 6 and resumed to 12 on the card: the same bits as the
+    uninterrupted fit on the card."""
+    from evcouplings_torch.ops.plm import PlmConfig, fit_plm
+
+    rng = np.random.default_rng(9)
+    codes = rng.integers(0, 5, size=(300, 12)).astype(np.int8)
+    w = rng.uniform(0.5, 1.0, 300)
+
+    def cfg(n):
+        return PlmConfig(max_iter=n, block_size=64, solver=solver,
+                         conv_tol=0.0, **extra)
+
+    ref = fit_plm(codes, w, 5, cfg(12), device=cuda)
+    ckpt = str(tmp_path / "fit.npz")
+    fit_plm(codes, w, 5, cfg(6), checkpoint_file=ckpt, device=cuda)
+    res = fit_plm(codes, w, 5, cfg(12), checkpoint_file=ckpt, device=cuda)
+    assert res.iteration_table[0]["iter"] == 7
+    np.testing.assert_array_equal(res.J_ij, ref.J_ij)
+    np.testing.assert_array_equal(res.h_i, ref.h_i)
+
+
+def test_float64_inversion_and_di_on_the_card(cuda):
+    """The mean-field covariance inverted in float64 on the card, and the
+    DI fixed point there, against the host (1e-10)."""
+    from evcouplings_torch.ops import mean_field as mf
+
+    rng = np.random.default_rng(4)
+    L, q, n = 30, 6, 400
+    codes = rng.integers(0, q, size=(n, L))
+    oh = np.eye(q)[codes].reshape(n, L * q)
+    f_i = 0.5 * oh.mean(0).reshape(L, q) + 0.5 / q
+    f_ij = (0.5 * (oh.T @ oh / n).reshape(L, q, L, q).transpose(0, 2, 1, 3)
+            + 0.5 / q ** 2)
+    idx = np.arange(L)
+    f_ij[idx, idx] = 0.5 * np.eye(q)[None] * (oh.mean(0).reshape(L, q)
+                                               [:, :, None]) + (
+        0.5 / q) * np.eye(q)[None]
+    C_cpu = mf.compute_covariance_matrix(f_i, f_ij, device="cpu")
+    C = mf.compute_covariance_matrix(f_i, f_ij, device=cuda)
+    inv = mf.invert_covariance(C)
+    inv_cpu = mf.invert_covariance(C_cpu)
+    np.testing.assert_allclose(inv.cpu().numpy(), inv_cpu.numpy(),
+                               rtol=1e-10, atol=1e-10)
+    J = mf.reshape_invC_to_4d(inv_cpu, L, q)
+    di = mf.direct_information(J.to(cuda), f_i, device=cuda)
+    np.testing.assert_allclose(
+        di.cpu().numpy(), mf.direct_information(J, f_i, device="cpu").numpy(),
+        rtol=1e-10, atol=1e-14)

@@ -127,9 +127,6 @@ def test_delete_outputs(jobs, tmp_path):
     (["align", "couplings", "compare"], None, "A14"),
     (["align"], ("align", "protocol", "standard"), "A19"),
     (["align"], ("align", "seqid_filter", 0.9), "A19"),
-    (["align", "couplings"], ("couplings", "protocol", "mean_field"),
-     "A16"),
-    (["align", "couplings"], ("couplings", "checkpoint_every", 5), "A8b"),
     (["align"], ("pipeline", None, "protein_complex"), "A19"),
     (["align"], ("management", "tracker_type", "sql"), "A19"),
 ])

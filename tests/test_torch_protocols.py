@@ -261,7 +261,6 @@ def test_mutate_on_one_model_matches_jax(chains):
     (lambda tmp: align.run(protocol="hmmbuild_and_search",
                            prefix=str(tmp / "a")), "A19"),
     (lambda tmp: couplings.run(protocol="complex"), "A19"),
-    (lambda tmp: couplings.run(protocol="mean_field"), "A16"),
     (lambda tmp: mutate.run(protocol="complex"), "A19"),
 ])
 def test_unported_protocols_name_their_item(tmp_path, run, item):
@@ -282,7 +281,7 @@ def test_external_identity_filter_raises(chains, tmp_path):
     ({"fit_devices": 2}, Exception, r"fit_devices must be in \[1, 1\]"),
     ({"model_shards": 2}, NotImplementedError, "ROADMAP A18"),
     ({"fit_devices": "many"}, Exception, "fit_devices"),
-    ({"parametrization": "asymmetric"}, NotImplementedError, "ROADMAP A15"),
+    ({"parametrization": "sideways"}, Exception, "parametrization"),
     ({"precision": "exact"}, Exception, "precision"),
 ])
 def test_unported_fit_knobs_raise(chains, tmp_path, knobs, error, match):

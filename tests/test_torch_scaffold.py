@@ -21,9 +21,11 @@ PORT_MODULES = [
     "evcouplings_torch.convert",
     "evcouplings_torch.couplings.fitter",
     "evcouplings_torch.couplings.mapping",
+    "evcouplings_torch.couplings.mean_field",
     "evcouplings_torch.couplings.model",
     "evcouplings_torch.couplings.pairs",
     "evcouplings_torch.couplings.protocol",
+    "evcouplings_torch.couplings.tools",
     "evcouplings_torch.kernels._build",
     "evcouplings_torch.kernels.adam_update",
     "evcouplings_torch.kernels.reweight",
@@ -36,7 +38,9 @@ PORT_MODULES = [
     "evcouplings_torch.ops.gauge",
     "evcouplings_torch.ops.hamiltonian",
     "evcouplings_torch.ops.lbfgs",
+    "evcouplings_torch.ops.mean_field",
     "evcouplings_torch.ops.plm",
+    "evcouplings_torch.ops.plm_sites",
     "evcouplings_torch.ops.plm_update",
     "evcouplings_torch.ops.scores",
     "evcouplings_torch.ops.weights",
@@ -161,3 +165,20 @@ def test_sequential_dot_is_an_fma_chain():
     with pytest.raises(ValueError):
         sequential_dot(torch.ones(3, dtype=torch.float64),
                        torch.ones(3, dtype=torch.float64))
+
+
+def test_new_entry_points_refuse_silent_cpu(monkeypatch, tmp_path):
+    from evcouplings_torch.align.alignment import Alignment
+    from evcouplings_torch.couplings.mean_field import MeanFieldDCA
+    from evcouplings_torch.ops import mean_field
+    from evcouplings_torch.ops.plm_sites import fit_plm_asym
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit_plm_asym(np.zeros((4, 3), np.int8), np.ones(4), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mean_field.direct_information(np.zeros((3, 3, 2, 2)),
+                                      np.full((3, 2), 0.5))
+    ali = Alignment.from_path(os.path.join(GOLDEN, "golden.a2m"), "fasta")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MeanFieldDCA(ali).fit()
