@@ -15,11 +15,17 @@ small size first). Phase 7 drives the couplings stage's other routes:
 exact group-L1 by FISTA (against the certified prox oracle, then at full
 width), checkpoint/resume (bitwise at full width), the asymmetric fit
 (golden3, full width, "auto" routing) and mean-field DCA through the
-pipeline. Every phase raises on a mismatch; nothing is caught,
-except that a machine without matplotlib cannot draw the mutate stage's
-plots, which the script then names before its last lines. The last
-lines are a JSON object describing each kernel, the card's name and
-power limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
+pipeline. Phase 8 drives the compare stage: the float64 minimum-atom
+distance contraction, card against host (8a); a small job through
+align, couplings and compare, its compare artifacts card against host
+(8b); and the full-width job through align, couplings, compare and
+mutate against ten seeded structures in a local SIFTS table (8c). Every
+phase raises on a mismatch; nothing is caught, except that a machine
+without matplotlib cannot draw the mutate stage's plots, which the
+script then names before its last lines (the compare stage is then
+configured to draw no figure). The last lines are a JSON object
+describing each kernel, the card's name and power limit as nvidia-smi
+reports them, and {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when no CUDA device is available or the
 port's package is not beside this script. Imports nothing of JAX.
@@ -47,6 +53,11 @@ FMA_LATENCY_CYCLES = 4
 # K4 serial chain latencies of the parity fit below before its dots were
 # batched (74 launches)
 PARITY_CHAINS_UNBATCHED = 74
+
+# the 8 covarying column pairs planted in the full-width pipeline synthetic
+# (0-based; phases 6b, 7d and 8)
+PLANTED = [(3, 40), (12, 77), (25, 150), (51, 90), (60, 131), (84, 118),
+           (99, 142), (107, 158)]
 
 # golden-fit gate of the repository (tests/test_golden_regression.py)
 RTOL, ATOL = 1e-4, 1e-5
@@ -781,6 +792,303 @@ def phase7d_mean_field(tmp, small, full, big_L=500):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the compare stage (SIFTS lookup, structure readers, the float64
+# minimum-atom-distance contraction on the card, EC comparison) in the
+# monomer pipeline after couplings. Structures and SIFTS tables are local
+# files made from a seed (tests/compare_fixtures.py): the machine has
+# no network, and the stage fetches only what is missing.
+# ---------------------------------------------------------------------------
+
+# every key the compare stage's outcfg carries when it finds structures
+COMPARE_KEYS = (
+    "ec_compared_all_file", "ec_compared_longrange_file",
+    "pdb_structure_hits_file", "pdb_structure_hits_unfiltered_file",
+    "distmap_monomer", "distmap_multimer", "distmap_monomer_residues_file",
+    "distmap_monomer_files", "distmap_monomer_individual_files",
+    "monomer_contacts_file", "distmap_multimer_files",
+    "distmap_multimer_individual_files", "multimer_contacts_file",
+    "remapped_pdb_files", "renumbered_pdb_files",
+    "ec_lines_compared_pml_file", "contact_map_files")
+
+
+def have_matplotlib():
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def compare_config(structure_dir, sifts_table):
+    """compare `standard` with the sample monomer config's settings
+    (config/sample_config_monomer.txt, compare section), except that
+    structures are found by a SIFTS lookup of sequence_id (by_alignment
+    off: there is no HMMER) in a local table; where matplotlib is absent,
+    plot settings that select no figure."""
+    if have_matplotlib():
+        plots = {"plot_probability_cutoffs": [0.90, 0.99],
+                 "plot_lowest_count": 0.05, "plot_highest_count": 1.0,
+                 "plot_increase": 0.05}
+    else:
+        plots = {"plot_probability_cutoffs": [], "plot_lowest_count": 2,
+                 "plot_highest_count": 1, "plot_increase": 1}
+    return {"protocol": "standard", "by_alignment": False,
+            "pdb_alignment_method": "jackhmmer", "alignment_min_overlap": 20,
+            "pdb_ids": None, "max_num_hits": 25, "max_num_structures": 10,
+            "use_bitscores": True, "domain_threshold": 0.1,
+            "sequence_threshold": 0.1, "compare_multimer": True,
+            "distance_cutoff": 5, "atom_filter": None,
+            "min_sequence_distance": 6, "boundaries": "union",
+            "draw_secondary_structure": True, "scale_sizes": True,
+            "raise_missing": False, "region": None,
+            "pdb_mmtf_dir": structure_dir,
+            "sifts_mapping_table": sifts_table, "sifts_sequence_db": None,
+            **plots}
+
+
+def write_structures(directory, structures, rows, truncated=()):
+    """Each structure as <id>.bcif (the ids in `truncated` cut to half
+    their bytes: they fail to load) and the SIFTS table; returns
+    (structure dir, table path)."""
+    import pandas as pd
+
+    from evcouplings_torch.compare.bcif import write_bcif
+
+    structure_dir = os.path.join(directory, "structures")
+    os.makedirs(structure_dir, exist_ok=True)
+    for pdb_id, cats in structures.items():
+        path = os.path.join(structure_dir, pdb_id + ".bcif")
+        write_bcif(path, cats)
+        if pdb_id in truncated:
+            with open(path, "rb") as f:
+                data = f.read()
+            with open(path, "wb") as f:
+                f.write(data[:len(data) // 2])
+    table = os.path.join(directory, "sifts.csv")
+    pd.DataFrame(rows).to_csv(table, index=False)
+    return structure_dir, table
+
+
+def monomer_job(prefix, a2m, sequence_id, align_kw, couplings_kw,
+                structure_dir, sifts_table):
+    """[align, couplings, compare, mutate] on the card; without
+    matplotlib the mutate stage is left out of the job (its plots cannot
+    be drawn) and run_mutate follows it."""
+    stages = ["align", "couplings", "compare"]
+    if have_matplotlib():
+        stages.append("mutate")
+    config = pipeline_config(prefix, a2m, sequence_id, align_kw,
+                             couplings_kw, stages=stages)
+    config["compare"] = compare_config(structure_dir, sifts_table)
+    return config
+
+
+def stage_outcfg(config, stage):
+    from evcouplings_torch.utils.config import read_config_file
+    from evcouplings_torch.utils.system import insert_dir
+
+    return read_config_file("{}_{}.outcfg".format(
+        insert_dir(config["global"]["prefix"], stage), stage))
+
+
+def phase8a(rng):
+    """The contraction alone, card against the port's host path (both
+    float64): the phase-8c structure (L=160, all heavy atoms, ragged, one
+    single-atom residue), an asymmetric two-chain case and a 1000-residue
+    chain. Returns {case: (card ms, host ms)}."""
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import compare_fixtures as ss
+    from evcouplings_torch.ops.distances import (
+        _pad_atoms, block_bytes, min_atom_distances,
+    )
+
+    # full_structure_set's chain (same seed): every 8c structure is cut
+    # from it
+    base = ss.target_chain(160, PLANTED, np.random.default_rng(8))
+    # residues 20-139 again, shifted by a few A: a partner chain in
+    # contact along its length
+    other = ss.sub_chain(base, 20, 140)
+    other["xyz"] = np.round(other["xyz"] + rng.normal(scale=3.0, size=3), 3)
+    big = ss.make_chain(rng, 1000)
+    cases = (("L=160 heavy atoms, symmetric", base, base),
+             ("160 x 120 two chains", base, other),
+             ("1000-residue chain, symmetric", big, big))
+    out = {}
+    for name, ci, cj in cases:
+        args = (ss.atom_ranges(ci), ci["xyz"], ss.atom_ranges(cj), cj["xyz"],
+                ci is cj)
+        t = time.perf_counter()
+        host = min_atom_distances(*args, device="cpu")
+        host_call_ms = (time.perf_counter() - t) * 1e3
+        card = min_atom_distances(*args)
+        err = float(np.abs(card - host).max())
+        assert err <= 1e-9, (name, err)
+        contacts = {}
+        for cutoff in (5.0, 8.0):
+            sets = []
+            for d in (card, host):
+                close = d <= cutoff
+                if ci is cj:
+                    close = np.triu(close, 1)
+                sets.append(set(zip(*np.nonzero(close))))
+            assert sets[0] == sets[1], (name, cutoff)
+            contacts[cutoff] = len(sets[0])
+        card_ms = cuda_ms(lambda: min_atom_distances(*args), 5)
+        A_i = _pad_atoms(args[0], args[1])[1].shape[1]
+        A_j = _pad_atoms(args[2], args[3])[1].shape[1]
+        n_i, n_j = len(args[0]), len(args[2])
+        log("phase 8a min_atom_distances {} ({} x {} residues, {} x {} "
+            "atoms): card vs host max |d diff| {:.2e} A (1e-9), contact "
+            "sets equal ({} pairs at 5 A, {} at 8 A); card {:.3f} ms per "
+            "call (CUDA events, 5 calls), host {:.1f} ms (one call, torch "
+            "float64 on the CPU); largest block {:.1f} MB".format(
+                name, n_i, n_j, int(np.sum(ci["counts"])),
+                int(np.sum(cj["counts"])), err, contacts[5.0],
+                contacts[8.0], card_ms, host_call_ms,
+                block_bytes(min(512, n_i), A_i, n_j, A_j) / 1e6))
+        out[name] = (card_ms, host_call_ms)
+    del big
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase8b(tmp, small, align_kw, not_produced):
+    """The small job (the phase-6a generator, N=150, L=18) through [align,
+    couplings, compare(, mutate)] on the card against three seeded
+    structures (one a homodimer); then the compare stage alone on the host
+    (device cpu) over a copy of the card job's tree, so that both read the
+    same alignment and ECs (the two fits differ in their last bits, phase
+    6a). Every compare artifact must agree. Returns the card job's
+    launches."""
+    import shutil
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import compare_fixtures as ss
+
+    root = os.path.join(tmp, "compare_small")
+    structure_dir, table = write_structures(root,
+                                            *ss.small_structure_set())
+    couplings_kw = dict(iterations=12, reuse_ecs=False,
+                        min_sequence_distance=3, scoring_model="skewnormal")
+    card_root = os.path.join(root, "card")
+    config = monomer_job(os.path.join(card_root, "job"), small, "TARGET_SEQ",
+                         align_kw, couplings_kw, structure_dir, table)
+    state, counts, secs = run_job(config)
+    assert counts["K1"] == 2, counts
+    if "mutate" not in config["stages"]:
+        run_mutate(state["model_file"], os.path.join(card_root, "mutate",
+                                                     "job"), not_produced)
+    host_root = os.path.join(root, "host")
+    shutil.copytree(card_root, host_root)
+    host_config = dict(config, stages=["compare"], **{"global": dict(
+        config["global"], prefix=os.path.join(host_root, "job"),
+        device="cpu")})
+    _, _, host_secs = run_job(host_config)
+
+    got, want = stage_outcfg(config, "compare"), stage_outcfg(host_config,
+                                                              "compare")
+    compared, err = ss.assert_same_compare_artifacts(got, want, card_root,
+                                                     host_root)
+    assert compared >= 14, compared
+    log("phase 8b small job [{}] on the card {:.2f} s (stages {}), the "
+        "compare stage alone on the host {:.2f} s: {} compare artifacts "
+        "equal (hits, contacts, maps, compared ECs, {} remapped and "
+        "renumbered PDB files and the .pml byte for byte), max |dist "
+        "diff| {:.2e} A; launches {}".format(
+            ", ".join(config["stages"]), secs,
+            json.dumps(runtime_seconds(state)), host_secs, compared,
+            len(got["remapped_pdb_files"]) + len(got["renumbered_pdb_files"]),
+            err, json.dumps(counts)))
+    return counts
+
+
+def phase8c(tmp, full, align_kw, couplings_kw, not_produced):
+    """The full-width job: the phase-6b planted synthetic (N=16384 + focus,
+    L=160) through [align, couplings (parity, 5 iterations), compare(,
+    mutate)] against ten seeded structures of the target (homodimers,
+    sub-ranges, a two-segment mapping, a chain named "NA", one truncated
+    file that is skipped). The compare stage's time is split by wrapping
+    the functions it calls. Returns the job's launches."""
+    import pandas as pd
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import compare_fixtures as ss
+    import evcouplings_torch.compare.distances as cd
+    import evcouplings_torch.compare.protocol as cp
+
+    root = os.path.join(tmp, "compare_full")
+    structures, rows = ss.full_structure_set(160, PLANTED)
+    structure_dir, table = write_structures(root, structures, rows,
+                                            truncated=("1t10",))
+    config = monomer_job(os.path.join(root, "job"), full, "TARGET",
+                         align_kw, couplings_kw, structure_dir, table)
+
+    split = dict.fromkeys(("SIFTS lookup", "structure load",
+                           "distance maps", "of which the contraction",
+                           "EC comparison"), 0.0)
+    wrapped = (("SIFTS lookup", cp, "_identify_structures"),
+               ("structure load", cp, "load_structures"),
+               ("distance maps", cp, "intra_dists"),
+               ("distance maps", cp, "multimer_dists"),
+               ("of which the contraction", cd, "min_atom_distances"),
+               ("EC comparison", cp, "coupling_scores_compared"))
+    originals = [(module, name, getattr(module, name))
+                 for _, module, name in wrapped]
+
+    def timing(part, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                split[part] += time.perf_counter() - t
+        return run
+
+    for part, module, name in wrapped:
+        setattr(module, name, timing(part, getattr(module, name)))
+    try:
+        state, counts, secs = run_job(config)
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+    assert counts["K1"] == 2, counts
+    missing = [k for k in COMPARE_KEYS if k not in state
+               or (state[k] is None and k != "contact_map_files")]
+    assert not missing, missing
+    hits = pd.read_csv(state["pdb_structure_hits_file"],
+                       keep_default_na=False)
+    assert len(hits) == 13 and "NA" in set(hits.pdb_chain), hits
+    assert len(state["remapped_pdb_files"]) == 12     # 1t10 skipped
+    longrange = pd.read_csv(state["ec_compared_longrange_file"])
+    top8 = longrange.iloc[:8]
+    want8 = {(i + 1, j + 1) for i, j in PLANTED}
+    assert set(zip(top8.i, top8.j)) == want8, top8
+    assert (top8.precision == 1.0).all() and (top8.dist <= 5).all(), top8
+    stages = runtime_seconds(state)
+    rest = stages["compare"] - (split["SIFTS lookup"]
+                                + split["structure load"]
+                                + split["distance maps"]
+                                + split["EC comparison"])
+    mut_secs = 0.0
+    if "mutate" not in config["stages"]:
+        _, mut_secs = run_mutate(state["model_file"], os.path.join(
+            root, "mutate", "job"), not_produced)
+    log("phase 8c full-width job [{}] N={} L={}: {:.2f} s; stages {}; "
+        "top 8 long-range compared ECs = the 8 planted pairs, precision "
+        "1.0, max dist {:.3f} A; 13 chains of 10 structures (1t10 "
+        "truncated, skipped), {} compared pairs ({} long-range); compare "
+        "stage split (s): {}, writing and the rest {:.3f}; mutate {:.2f} "
+        "s; launches {}".format(
+            ", ".join(config["stages"]), state["num_sequences"],
+            state["num_sites"], secs, json.dumps(stages),
+            float(top8.dist.max()),
+            len(pd.read_csv(state["ec_compared_all_file"])), len(longrange),
+            json.dumps({k: round(v, 4) for k, v in split.items()}), rest,
+            mut_secs, json.dumps(counts)))
+    return counts
+
+
 def run_job(config):
     """One pipeline job through execute_wrapped, its kernel launches
     counted from zero, and its final state; every file the final outcfg
@@ -1193,9 +1501,9 @@ def main():
     # is printed beside it
     small = os.path.join(tmp, "synthetic.a2m")
     write_synthetic_a2m(small)
-    align_kw = dict(extract_annotation=False, minimum_sequence_coverage=50,
-                    minimum_column_coverage=70,
-                    compute_num_effective_seqs=True)
+    align_kw = small_align_kw = dict(
+        extract_annotation=False, minimum_sequence_coverage=50,
+        minimum_column_coverage=70, compute_num_effective_seqs=True)
 
     def small_jobs(iterations, with_mutate):
         couplings_kw = dict(iterations=iterations, reuse_ecs=False,
@@ -1272,9 +1580,7 @@ def main():
     rng6 = np.random.default_rng(SEED + 6)
     codes6 = synthetic_codes(rng6, n, L, 21, families=256, mutate=0.15,
                              gap_rows=0.1, missing_rows=0.0)
-    planted = [(3, 40), (12, 77), (25, 150), (51, 90), (60, 131),
-               (84, 118), (99, 142), (107, 158)]
-    plant_pairs(rng6, codes6, planted)
+    plant_pairs(rng6, codes6, PLANTED)
     full = os.path.join(tmp, "pf00071_scale_planted.a2m")
     write_a2m(full, codes6)
     del codes6
@@ -1306,7 +1612,7 @@ def main():
             + "_iteration_table.csv").time.iloc[-1])
         longrange = pd.read_csv(state["ec_longrange_file"])
         top8 = set(zip(longrange.i.values[:8], longrange.j.values[:8]))
-        want8 = {(i + 1, j + 1) for i, j in planted}
+        want8 = {(i + 1, j + 1) for i, j in PLANTED}
         log("phase 6b {} job N={} (after the coverage filter; N_eff {:.1f}) "
             "L={}: {:.2f} s; stages {}; couplings fit loop {:.2f} s, host "
             "rest of the couplings stage {:.2f} s; kernel launches {}; "
@@ -1347,9 +1653,29 @@ def main():
     log("phase 7 launches by path: {}; phase 7 took {:.1f} s".format(
         json.dumps(phase7), time.perf_counter() - t7))
 
+    # ---- phase 8: the compare stage: the float64 distance contraction
+    # alone (8a), card against host at a small size (8b), the full-width
+    # four-stage job (8c); K1 launches twice per job
+    import importlib.util
+
+    t8 = time.perf_counter()
+    log("phase 8 packages: msgpack {}, matplotlib {}".format(
+        *("present" if importlib.util.find_spec(m) else "absent"
+          for m in ("msgpack", "matplotlib"))))
+    phase8a(rng)
+    phase8 = {"8b small job": phase8b(tmp, small, small_align_kw,
+                                      not_produced),
+              "8c full-width job": phase8c(tmp, full, align_kw,
+                                           sample_couplings, not_produced)}
+    phase8_launches = {k: sum(c[k] for c in phase8.values())
+                       for k in kernel_counts()}
+    log("phase 8 launches by job: {}; phase 8 took {:.1f} s".format(
+        json.dumps(phase8), time.perf_counter() - t8))
+
     for k, row in rows.items():
         row["launches"] = launches[k]
         row["pipeline_launches"] = pipeline_launches[k]
+        row["compare_job_launches"] = phase8_launches[k]
     for item in sorted(not_produced):
         log("phase 6 not produced:", item)
     log(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4")]}))

@@ -1,7 +1,7 @@
 """
 Small generic helpers (the subset of evcouplings_tpu/utils/helpers.py
-that the port's pipeline uses): an ordered default dict and fixed-width
-sequence wrapping.
+that the port uses): an ordered default dict, fixed-width sequence
+wrapping, range overlaps and runs of consecutive positions.
 """
 
 import reprlib as _reprlib
@@ -52,3 +52,39 @@ def wrap(text, width=80):
     return "\n".join(
         text[i:i + width] for i in range(0, len(text), width)
     )
+
+
+def range_overlap(a, b):
+    """Length of the overlap of two closed-open ranges (start, end);
+    degenerate ranges (start >= end) are rejected."""
+    from evcouplings_torch.utils.config import InvalidParameterError
+
+    if a[0] >= a[1]:
+        raise InvalidParameterError(
+            "Start has to be smaller than end a[0] < a[1]")
+    if b[0] >= b[1]:
+        raise InvalidParameterError(
+            "Start has to be smaller than end b[0] < b[1]")
+    return max(0, min(a[1], b[1]) - max(a[0], b[0]))
+
+
+def find_segments(data):
+    """Find consecutive index segments in an iterable of positions.
+
+    Returns a list of (start, end) tuples (inclusive bounds) for each run
+    of consecutive integers.
+    """
+    data = list(data)
+    if not data:
+        return []
+
+    segments = []
+    start = prev = data[0]
+    for x in data[1:]:
+        if x == prev + 1:
+            prev = x
+        else:
+            segments.append((start, prev))
+            start = prev = x
+    segments.append((start, prev))
+    return segments

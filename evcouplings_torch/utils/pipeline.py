@@ -13,12 +13,11 @@ absent: the CUDA device, "cpu": the host) reaches every numeric call.
 With EVCOUPLINGS_TRACE_DIR set, each stage also writes a torch.profiler
 trace there (utils/tracing.device_trace).
 
-The monomer table keeps all five stages. align and couplings run the
-port's protocols, and mutate runs on their outputs as a protocol call
-(as in the JAX package, a mutate *stage* follows compare, whose outcfg
-it reuses when compare is skipped). compare (ROADMAP A14) and fold
-(ROADMAP A19) raise NotImplementedError, as does the complex pipeline
-(ROADMAP A19).
+The monomer table keeps all five stages. align, couplings, compare and
+mutate run the port's protocols (as in the JAX package, the mutate stage
+follows compare and reuses compare's outcfg when compare is skipped);
+fold raises NotImplementedError naming ROADMAP A19, as do the complex
+pipeline and the compare stage's sequence search (by_alignment: True).
 """
 
 import os
@@ -53,6 +52,7 @@ from evcouplings_torch.utils.tracing import (
 )
 
 import evcouplings_torch.align.protocol as ap
+import evcouplings_torch.compare.protocol as cm
 import evcouplings_torch.couplings.protocol as cp
 import evcouplings_torch.mutate.protocol as mt
 
@@ -69,7 +69,7 @@ def _unported_stage(stage, item):
 _MONOMER_STAGES = [
     ("align", ap.run, None),
     ("couplings", cp.run, None),
-    ("compare", _unported_stage("compare", "A14"), None),
+    ("compare", cm.run, None),
     ("mutate", mt.run, None),
     ("fold", _unported_stage("fold", "A19"), None),
 ]

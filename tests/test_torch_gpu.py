@@ -210,3 +210,22 @@ def test_float64_inversion_and_di_on_the_card(cuda):
     np.testing.assert_allclose(
         di.cpu().numpy(), mf.direct_information(J, f_i, device="cpu").numpy(),
         rtol=1e-10, atol=1e-14)
+
+
+@pytest.mark.parametrize("n_i,n_j,block", [(160, 160, 512), (70, 45, 16)])
+def test_min_atom_distances_on_the_card_equal_the_host(cuda, n_i, n_j,
+                                                       block):
+    """The compare stage's float64 contraction: card against host within
+    1e-9 A (the same closest atom pair, its difference-form distance),
+    zeros exact."""
+    import compare_fixtures as cf
+    from evcouplings_torch.ops.distances import min_atom_distances
+
+    rng = np.random.default_rng(n_i)
+    ci = cf.make_chain(rng, n_i, single_atom=n_i // 2)
+    cj = ci if n_i == n_j else cf.moved(cf.make_chain(rng, n_j), rng, 5.0)
+    args = (cf.atom_ranges(ci), ci["xyz"], cf.atom_ranges(cj), cj["xyz"])
+    card = min_atom_distances(*args, block_rows=block, device=cuda)
+    host = min_atom_distances(*args, block_rows=block, device="cpu")
+    assert np.abs(card - host).max() <= 1e-9
+    assert np.array_equal(card == 0.0, host == 0.0)

@@ -4,34 +4,74 @@ couplings) through execute_wrapped in both, then the runtime's own
 behavior: flag files, the final outcfg, the runtime table, skip/reuse,
 the archive, delete_outputs, the stages and protocols that are not
 ported yet, and a job that names no device on a machine without a card.
+Then the four-stage monomer job (align, couplings, compare, mutate)
+against seeded structures (tests/compare_fixtures.py) through both
+packages.
 
-Every comparison here is of keys, file names and flags: exactly equal.
-The numbers the stages produce are held to the JAX package's in
-tests/test_torch_protocols.py.
+Every comparison of the runtime is of keys, file names and flags:
+exactly equal. The numbers the stages produce are held to the JAX
+package's in tests/test_torch_protocols.py, and the compare stage's
+artifacts in tests/test_torch_compare_protocol.py: here they are held
+equal where they do not depend on the fitted EC scores, and all of them
+where the JAX compare stage runs on the port job's own state.
 """
 
 import os
+import shutil
 import tarfile
 
+import numpy as np
 import pandas as pd
 import pytest
 import torch
 
+import compare_fixtures as ss
 from evcouplings_tpu.utils import pipeline as jax_pipeline
+from evcouplings_torch.compare import bcif
 from evcouplings_torch.utils import pipeline
 from evcouplings_torch.utils.config import (
     InvalidParameterError, read_config_file,
 )
 from evcouplings_torch.utils.system import ResourceError, insert_dir
+from test_golden_regression import ATOL, RTOL
 from test_pipeline import make_config
+from test_torch_compare_protocol import ZERO_ATOL
 
 ARCHIVED = ["alignment_file", "ec_file", "model_file", "frequencies_file"]
+
+
+def _compare_section(tmp_path):
+    """compare `standard` against three seeded structures of
+    TARGET_SEQ/11-28 (one a homodimer) in a local SIFTS table; the plot
+    settings select no figure."""
+    structures, rows = ss.small_structure_set()
+    structure_dir = tmp_path / "structures"
+    structure_dir.mkdir(exist_ok=True)
+    for pdb_id, cats in structures.items():
+        bcif.write_bcif(str(structure_dir / (pdb_id + ".bcif")), cats)
+    pd.DataFrame(rows).to_csv(tmp_path / "sifts.csv", index=False)
+    return {
+        "protocol": "standard", "pdb_mmtf_dir": str(structure_dir),
+        "sifts_mapping_table": str(tmp_path / "sifts.csv"),
+        "sifts_sequence_db": None, "by_alignment": False,
+        "pdb_alignment_method": "jackhmmer", "alignment_min_overlap": 20,
+        "pdb_ids": None, "max_num_hits": 25, "max_num_structures": 10,
+        "use_bitscores": True, "domain_threshold": 0.1,
+        "sequence_threshold": 0.1, "region": None,
+        "compare_multimer": True, "distance_cutoff": 5,
+        "atom_filter": None, "min_sequence_distance": 6,
+        "plot_probability_cutoffs": [], "plot_lowest_count": 2,
+        "plot_highest_count": 1, "plot_increase": 1,
+        "boundaries": "union", "draw_secondary_structure": True,
+        "scale_sizes": True,
+    }
 
 
 def _config(tmp_path, stages=("align", "couplings"), management=None,
             device="cpu", iterations=10):
     config = make_config(tmp_path, stages=stages, management=management)
     config["couplings"]["iterations"] = iterations
+    config["compare"] = _compare_section(tmp_path)
     if device is not None:
         config["global"]["device"] = device
     return config
@@ -124,7 +164,8 @@ def test_delete_outputs(jobs, tmp_path):
 
 
 @pytest.mark.parametrize("stages,edit,item", [
-    (["align", "couplings", "compare"], None, "A14"),
+    (["align", "couplings", "compare"], ("compare", "by_alignment", True),
+     "A19"),
     (["align"], ("align", "protocol", "standard"), "A19"),
     (["align"], ("align", "seqid_filter", 0.9), "A19"),
     (["align"], ("pipeline", None, "protein_complex"), "A19"),
@@ -146,7 +187,7 @@ def test_monomer_table_keeps_every_stage():
     table = pipeline.PIPELINES["protein_monomer"]
     assert [stage for stage, _, _ in table] == [
         stage for stage, _, _ in jax_pipeline.PIPELINES["protein_monomer"]]
-    for stage, item in (("compare", "A14"), ("fold", "A19")):
+    for stage, item in (("fold", "A19"),):
         runner = dict((name, run) for name, run, _ in table)[stage]
         with pytest.raises(NotImplementedError, match="ROADMAP " + item):
             runner(prefix="unused")
@@ -201,3 +242,102 @@ def test_command_line_runs_a_config_file(jobs, tmp_path):
     result = CliRunner().invoke(pipeline.app, [cfg_file])
     assert result.exit_code == 0, result.output
     assert os.path.isfile(config["global"]["prefix"] + ".done")
+
+
+COMPARE_STAGES = ["align", "couplings", "compare", "mutate"]
+
+
+@pytest.fixture(scope="module")
+def jobs4(tmp_path_factory):
+    """[align, couplings, compare, mutate] through both packages, and the
+    JAX compare stage alone on a copy of the port job's tree (so that it
+    reads the port's alignment and ECs)."""
+    out = {}
+    for tag, runtime in (("torch", pipeline), ("jax", jax_pipeline)):
+        d = tmp_path_factory.mktemp("four_stages_" + tag)
+        config = _config(d, stages=COMPARE_STAGES)
+        out[tag] = (config, runtime.execute_wrapped(**config))
+    config, _ = out["torch"]
+    src = os.path.dirname(config["global"]["prefix"])
+    dst = str(tmp_path_factory.mktemp("jax_compare_on_torch_job") / "out")
+    shutil.copytree(src, dst)
+    again = dict(config, stages=["compare"],
+                 **{"global": dict(config["global"],
+                                   prefix=os.path.join(dst, "job"))})
+    out["jax on torch"] = (again, jax_pipeline.execute_wrapped(**again))
+    return out
+
+
+def _compare_outcfg(config):
+    stage_prefix = insert_dir(config["global"]["prefix"], "compare")
+    return read_config_file(stage_prefix + "_compare.outcfg")
+
+
+def _root(config):
+    return os.path.dirname(config["global"]["prefix"])
+
+
+def test_four_stage_job_keys_and_compare_outcfg_match_jax(jobs4):
+    (config, state), (jax_config, want) = jobs4["torch"], jobs4["jax"]
+    assert set(state) == set(want)
+    got_cmp, want_cmp = _compare_outcfg(config), _compare_outcfg(jax_config)
+    assert set(got_cmp) == set(want_cmp)
+    assert all(state[k] == v for k, v in got_cmp.items())
+    runtime = pd.read_csv(state["runtime_file"])
+    assert list(runtime.scope) == COMPARE_STAGES
+    assert os.path.isfile(state["mutation_matrix_file"])
+    assert state["contact_map_files"] == []
+
+
+@pytest.mark.parametrize("key", [
+    "pdb_structure_hits_file", "pdb_structure_hits_unfiltered_file",
+    "monomer_contacts_file", "multimer_contacts_file",
+    "distmap_monomer_residues_file", "remapped_pdb_files",
+    "renumbered_pdb_files", "distmap_monomer", "distmap_multimer"])
+def test_four_stage_structure_artifacts_equal_jax(jobs4, key):
+    """What does not depend on the fitted ECs is equal: hits, contacts,
+    distance maps (1e-9 A), remapped and renumbered PDB files."""
+    (config, _), (jax_config, _) = jobs4["torch"], jobs4["jax"]
+    got, want = _compare_outcfg(config)[key], _compare_outcfg(jax_config)[key]
+    if key.startswith("distmap_") and not key.endswith("_file"):
+        pairs = [(got + ext, want + ext) for ext in (".csv", ".npy")]
+    elif isinstance(got, dict):
+        rel = {os.path.relpath(f, _root(config)): v for f, v in got.items()}
+        assert rel == {os.path.relpath(f, _root(jax_config)): v
+                       for f, v in want.items()}
+        pairs = list(zip(sorted(got), sorted(want)))
+    else:
+        pairs = [(got, want)]
+    assert pairs
+    for g, w in pairs:
+        ss.assert_same_compare_file(g, w, zero_atol=ZERO_ATOL)
+
+
+def test_four_stage_compared_ecs_match_jax(jobs4):
+    """The compared EC tables of the two jobs: the same pairs and
+    distances (1e-9 A); the EC scores of the two fits within the golden
+    gate, as in tests/test_torch_protocols.py."""
+    (config, _), (jax_config, _) = jobs4["torch"], jobs4["jax"]
+    for key in ("ec_compared_all_file", "ec_compared_longrange_file"):
+        got, want = (pd.read_csv(_compare_outcfg(c)[key]).sort_values(
+            ["i", "j"]).reset_index(drop=True) for c in (config, jax_config))
+        assert list(got.columns) == list(want.columns)
+        assert (got[["i", "j"]].values == want[["i", "j"]].values).all()
+        for col in ("dist", "dist_intra", "dist_multimer"):
+            np.testing.assert_allclose(got[col], want[col], rtol=0,
+                                       atol=1e-9, err_msg=col)
+        for col in ("cn", "fn"):
+            np.testing.assert_allclose(got[col], want[col], rtol=RTOL,
+                                       atol=ATOL, err_msg=col)
+
+
+def test_jax_compare_stage_on_the_port_job_is_equal(jobs4):
+    """The JAX compare stage, run by the JAX pipeline on the port job's
+    align and couplings outputs, writes what the port's compare stage
+    wrote: every artifact equal (Pymol script and PDB files byte for
+    byte, distances within 1e-9 A)."""
+    (config, _), (again, _) = jobs4["torch"], jobs4["jax on torch"]
+    compared, _ = ss.assert_same_compare_artifacts(
+        _compare_outcfg(config), _compare_outcfg(again), _root(config),
+        _root(again), zero_atol=ZERO_ATOL)
+    assert compared >= 14

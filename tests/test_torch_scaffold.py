@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -18,6 +19,14 @@ PORT_MODULES = [
     "evcouplings_torch",
     "evcouplings_torch.align.alignment",
     "evcouplings_torch.align.protocol",
+    "evcouplings_torch.compare",
+    "evcouplings_torch.compare.bcif",
+    "evcouplings_torch.compare.distances",
+    "evcouplings_torch.compare.ecs",
+    "evcouplings_torch.compare.mapping",
+    "evcouplings_torch.compare.pdb",
+    "evcouplings_torch.compare.protocol",
+    "evcouplings_torch.compare.sifts",
     "evcouplings_torch.convert",
     "evcouplings_torch.couplings.fitter",
     "evcouplings_torch.couplings.mapping",
@@ -33,6 +42,7 @@ PORT_MODULES = [
     "evcouplings_torch.mutate",
     "evcouplings_torch.mutate.calculations",
     "evcouplings_torch.mutate.protocol",
+    "evcouplings_torch.ops.distances",
     "evcouplings_torch.ops.encode",
     "evcouplings_torch.ops.frequencies",
     "evcouplings_torch.ops.gauge",
@@ -182,3 +192,29 @@ def test_new_entry_points_refuse_silent_cpu(monkeypatch, tmp_path):
     ali = Alignment.from_path(os.path.join(GOLDEN, "golden.a2m"), "fasta")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MeanFieldDCA(ali).fit()
+
+
+def test_compare_entry_points_refuse_silent_cpu(monkeypatch, tmp_path):
+    from evcouplings_torch.compare import protocol
+    from evcouplings_torch.compare.distances import DistanceMap
+    from evcouplings_torch.compare.pdb import Chain
+    from evcouplings_torch.ops.distances import min_atom_distances
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        min_atom_distances([[0, 1]], np.zeros((2, 3)), [[0, 0]],
+                           np.ones((1, 3)))
+    residues = pd.DataFrame({"id": ["1", "2"]})
+    coords = pd.DataFrame({"residue_index": [0, 1], "x": [0.0, 4.0],
+                           "y": [0.0, 0.0], "z": [0.0, 0.0]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DistanceMap.from_coords(Chain(residues, coords))
+    assert DistanceMap.from_coords(Chain(residues, coords),
+                                   device="cpu").dist(1, 2) == 4.0
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        protocol.run(protocol="standard", prefix=str(tmp_path / "c"),
+                     ec_file=None, min_sequence_distance=6,
+                     pdb_mmtf_dir=None, atom_filter=None,
+                     compare_multimer=False, distance_cutoff=5,
+                     target_sequence_file=None, scale_sizes=True)
+    assert not os.listdir(tmp_path)
