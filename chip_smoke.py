@@ -19,7 +19,12 @@ pipeline. Phase 8 drives the compare stage: the float64 minimum-atom
 distance contraction, card against host (8a); a small job through
 align, couplings and compare, its compare artifacts card against host
 (8b); and the full-width job through align, couplings, compare and
-mutate against ten seeded structures in a local SIFTS table (8c). Every
+mutate against ten seeded structures in a local SIFTS table (8c). Phase
+9 probes for HMMER and HHsuite, checks the Gibbs sampler on the card and
+times its sweep at full width (9a), and drives the sample config's search
+route (align `standard` with the hhfilter identity filter, compare
+`by_alignment`) on fake search binaries: a small job card against host
+(9b), then the full-width job (9c). Every
 phase raises on a mismatch; nothing is caught, except that a machine
 without matplotlib cannot draw the mutate stage's plots, which the
 script then names before its last lines (the compare stage is then
@@ -443,7 +448,9 @@ def phase7a_fista(tmp, a2m, common):
 def profile_device_time(what, fn):
     """fn() once under torch.profiler: the wall time, the device's busy
     share of it, the GEMMs' share of the busy time, and the kernels with
-    the most device time."""
+    the most device time. Returns the wall and busy seconds and the
+    number of device operations (kernels, copies, fills), or None when
+    the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -461,7 +468,7 @@ def profile_device_time(what, fn):
     if busy == 0:
         log("{} under the profiler: no device time (not measured)".format(
             what))
-        return
+        return None
     gemm = sum(ms for ms, _, k in kern
                if any(t in k.lower() for t in ("gemm", "cutlass", "nvjet",
                                                "sm90_xmma")))
@@ -472,6 +479,8 @@ def profile_device_time(what, fn):
                           gemm / busy, "; ".join(
                               "{} x{} {:.1f} ms".format(k[:60], c, ms)
                               for ms, c, k in top)))
+    return {"wall_s": wall, "busy_s": busy / 1e3,
+            "launches": sum(c for _, c, _ in kern)}
 
 
 def timed(fn):
@@ -1089,6 +1098,296 @@ def phase8c(tmp, full, align_kw, couplings_kw, not_produced):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the Gibbs sampler (9a) and the sequence-search protocols: align
+# `standard` (jackhmmer, the hhfilter identity filter) and compare
+# by_alignment, card against host at a small size (9b) and at full width
+# (9c). The machine has no HMMER, HHsuite or sequence database: the search
+# binaries are bash scripts that keep the tools' command lines and return
+# prepared outputs (tests/search_fixtures.py), as the JAX package's own
+# tests drive them; real binaries are probed and reported.
+# ---------------------------------------------------------------------------
+
+SEARCH_TOOLS = ("jackhmmer", "hmmbuild", "hmmsearch", "hmmscan", "hhfilter")
+# the fake binaries and their prepared outputs are written inside the
+# checkout (build/ is git-ignored), where the kernels are built and run:
+# a temporary directory may be mounted without execute permission
+SEARCH_DIR = os.path.join(HERE, "build", "chip_smoke_search")
+
+
+def phase9_probe():
+    import shutil
+
+    found = {tool: shutil.which(tool) for tool in SEARCH_TOOLS}
+    log("phase 9 probe (shutil.which): {}".format(json.dumps(found)))
+    return found
+
+
+def phase9a_sampler(L=160, q=21, S=4096, sweeps=50):
+    """The sampler on the card: exactness checks at tiny sizes, then ms
+    per sweep at full width (L=160, q=21, S=4096, 50 sweeps) against the
+    bytes a sweep of this formulation moves."""
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import sampling_fixtures as sfx
+    from evcouplings_torch.ops.sampling import gibbs_sample
+
+    J, h = sfx.tiny_model(0, 3, 3)
+    codes, _ = gibbs_sample(J, h, 20000, 60, seed=1)
+    tv = sfx.total_variation(codes, sfx.boltzmann(J, h), 3)
+    assert tv < 0.03, tv
+    again, _ = gibbs_sample(J, h, 20000, 60, seed=1)
+    assert np.array_equal(codes, again)
+    L4 = 4
+    h0 = np.random.default_rng(1).normal(size=(L4, 4))
+    uniform, _ = gibbs_sample(np.zeros((L4, L4, 4, 4)), h0, 8000, 10, seed=2,
+                              beta=0.0)
+    freqs = np.stack([np.bincount(uniform[:, i].astype(int), minlength=4)
+                      / 8000 for i in range(L4)])
+    uni_err = float(np.abs(freqs - 0.25).max())
+    assert uni_err <= 0.03, uni_err
+    J, h = sfx.tiny_model(21, 7, 5, h_scale=1.0, J_scale=0.5)
+    init = np.random.default_rng(22).integers(0, 5, (256, 7))
+    want, gap = sfx.argmax_chain(J, h, init, 4)
+    assert gap > 1e-3, gap
+    card, _ = gibbs_sample(J, h, 256, 4, init_codes=init, beta=1e6, seed=5)
+    host, _ = gibbs_sample(J, h, 256, 4, init_codes=init, beta=1e6, seed=5,
+                           device="cpu")
+    assert np.array_equal(card, host) and np.array_equal(card, want)
+    log("phase 9a sampler checks on the card: Boltzmann L=3 q=3 (20000 "
+        "chains, 60 sweeps) TV {:.4f} (< 0.03), the same seed twice equal; "
+        "beta=0 max |f - 1/q| {:.4f} (0.03); beta=1e6 card = host = the "
+        "float64 argmax chain code for code (smallest logit gap {:.4f} > "
+        "1e-3)".format(tv, uni_err, gap))
+
+    # full width: a seeded model with couplings of plausible scale
+    rng = np.random.default_rng(SEED + 9)
+    h = rng.normal(scale=0.5, size=(L, q))
+    J = rng.normal(scale=0.05, size=(L, L, q, q))
+    J = 0.5 * (J + J.transpose(1, 0, 3, 2))
+    J[np.arange(L), np.arange(L)] = 0.0
+    out = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        def run():
+            return gibbs_sample(J, h, S, sweeps, seed=3, dtype=dtype)
+        (codes, _), secs = timed(run)
+        (codes2, _), secs2 = timed(run)
+        assert np.array_equal(codes, codes2)
+        assert codes.shape == (S, L) and 0 <= codes.min() and codes.max() < q
+        prof = profile_device_time("phase 9a sampler " + name, run)
+        nbytes = 2 if dtype == torch.bfloat16 else 4
+        lq = L * q
+        # per site: the one-hot state and the site's rows read, the
+        # logits written (compute dtype), the site's Gumbel block read
+        per_sweep = L * (S * lq * nbytes + lq * q * nbytes
+                         + S * q * nbytes + S * q * 4)
+        bound_ms = per_sweep / HBM_BYTES_PER_S * 1e3
+        ms = min(secs, secs2) * 1e3 / sweeps
+        out[name] = dict(ms_per_sweep=ms, bound_ms=bound_ms,
+                         launches_per_sweep=(prof["launches"] / sweeps
+                                             if prof else None),
+                         busy=(prof["busy_s"] / prof["wall_s"]
+                               if prof else None))
+        log("phase 9a sampler full width L={} q={} S={} {} sweeps {}: "
+            "{:.3f} ms per sweep (best of two calls, host clock after "
+            "sync; {:.2f} s and {:.2f} s), byte bound {:.3f} ms per sweep "
+            "({:.2f} GB: the {:.1f} MB one-hot read at each of the L "
+            "sites), {} device operations per sweep, device busy {}; "
+            "state {:.1f} MB, flattened J {:.1f} MB".format(
+                L, q, S, sweeps, name, ms, secs, secs2, bound_ms,
+                per_sweep / 1e9, S * lq * nbytes / 1e6,
+                "{:.1f}".format(out[name]["launches_per_sweep"])
+                if prof else "not measured",
+                "{:.1%}".format(out[name]["busy"]) if prof
+                else "not measured", S * lq * nbytes / 1e6,
+                lq * lq * nbytes / 1e6))
+    return out
+
+
+def search_config(prefix, files, structure_dir, couplings_kw, stages,
+                  device=None, seqid_filter=None, min_overlap=20):
+    """The sample monomer config's align and compare sections
+    (config/sample_config_monomer.txt: align protocol standard, compare
+    by_alignment) on the fake binaries and files of
+    search_fixtures.search_job_files; N_eff is computed in the align
+    stage."""
+    config = pipeline_config(prefix, None, files["sequence_id"], {},
+                             couplings_kw, stages=stages, device=device)
+    config["global"].update(sequence_file=files["sequence_file"],
+                            region=None, cpu=None)
+    config["tools"] = {"jackhmmer": files["jackhmmer"],
+                       "hhfilter": files["hhfilter"], "hmmbuild": None,
+                       "hmmsearch": None, "plmc": None}
+    config["databases"] = {
+        "uniref90": files["uniref90"],
+        "sequence_download_url": "http://invalid.example/{}.fasta",
+        "sifts_mapping_table": files["sifts_mapping_table"],
+        "sifts_sequence_db": files["sifts_sequence_db"]}
+    config["align"] = {
+        "protocol": "standard", "first_index": files["first_index"],
+        "iterations": 5, "database": "uniref90", "use_bitscores": True,
+        "domain_threshold": 0.5, "sequence_threshold": 0.5,
+        "checkpoints_hmm": False, "checkpoints_ali": False, "nobias": False,
+        "reuse_alignment": True, "seqid_filter": seqid_filter,
+        "minimum_sequence_coverage": 50, "minimum_column_coverage": 70,
+        "compute_num_effective_seqs": True, "extract_annotation": True}
+    compare = compare_config(structure_dir, None)
+    for key in ("sifts_mapping_table", "sifts_sequence_db"):
+        compare.pop(key)
+    compare.update(by_alignment=True, alignment_min_overlap=min_overlap)
+    config["compare"] = compare
+    return config
+
+
+def search_files(directory, a2m, rows, small):
+    """search_job_files (tests/search_fixtures.py) plus the target's id
+    and numbering."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import search_fixtures as sf
+
+    files = sf.search_job_files(directory, a2m, rows, small=small)
+    header = sf.read_rows(a2m)[0][0]
+    name, span = header.split("/")
+    files.update(sequence_id=name, first_index=int(span.split("-")[0]))
+    return files
+
+
+def phase9b(tmp, small, not_produced):
+    """The small job (the phase-6a generator, N=150, L=18): align standard
+    with seqid_filter (the fake hhfilter drops every 7th row), couplings,
+    compare by_alignment (the fake jackhmmer finds the three seeded
+    structures, 3ccc through a homolog), mutate, on the card; the align
+    stage alone on the host, and the compare stage alone on the host over
+    a copy of the card job's tree (the two fits differ in their last
+    bits). The .a2m, the align CSVs and every compare artifact must be
+    equal. Returns the card job's launches."""
+    import shutil
+
+    import pandas as pd
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import compare_fixtures as ss
+
+    root = os.path.join(tmp, "search_small")
+    structures, rows = ss.small_structure_set()
+    structure_dir, _ = write_structures(root, structures, rows)
+    files = search_files(os.path.join(SEARCH_DIR, "small"), small, rows,
+                         True)
+    couplings_kw = dict(iterations=12, reuse_ecs=False,
+                        min_sequence_distance=3, scoring_model="skewnormal")
+    stages = ["align", "couplings", "compare"]
+    if have_matplotlib():
+        stages.append("mutate")
+    card_root = os.path.join(root, "card")
+    config = search_config(os.path.join(card_root, "job"), files,
+                           structure_dir, couplings_kw, stages,
+                           seqid_filter=95, min_overlap=10)
+    state, counts, secs = run_job(config)
+    assert counts["K1"] == 2, counts
+    if "mutate" not in stages:
+        run_mutate(state["model_file"], os.path.join(card_root, "mutate",
+                                                     "job"), not_produced)
+    host_align = search_config(os.path.join(root, "host_align", "job"),
+                               files, structure_dir, couplings_kw, ["align"],
+                               device="cpu", seqid_filter=95,
+                               min_overlap=10)
+    host, _, host_align_secs = run_job(host_align)
+    equal = []
+    for key in ("alignment_file", "raw_focus_alignment_file",
+                "identities_file", "frequencies_file",
+                "sequence_weights_file", "annotation_file"):
+        with open(state[key]) as a, open(host[key]) as b:
+            assert a.read() == b.read(), key
+        equal.append(key)
+    got, want = (pd.read_csv(x["statistics_file"]).drop(columns="prefix")
+                 for x in (state, host))
+    pd.testing.assert_frame_equal(got, want, check_exact=True)
+    assert state["num_sequences"] == host["num_sequences"]
+    host_root = os.path.join(root, "host")
+    shutil.copytree(card_root, host_root)
+    host_config = dict(config, stages=["compare"], **{"global": dict(
+        config["global"], prefix=os.path.join(host_root, "job"),
+        device="cpu")})
+    _, _, host_secs = run_job(host_config)
+    got, want = (stage_outcfg(config, "compare"),
+                 stage_outcfg(host_config, "compare"))
+    compared, err = ss.assert_same_compare_artifacts(got, want, card_root,
+                                                     host_root)
+    hits = pd.read_csv(got["pdb_structure_hits_file"])
+    assert set(hits.pdb_id) == {"1aaa", "2bbb", "3ccc"}, hits
+    log("phase 9b small search job [{}] on the card {:.2f} s (stages {}; "
+        "hhfilter dropped {} rows, {} sequences after the filters), align "
+        "on the host {:.2f} s, compare on the host {:.2f} s: .a2m and the "
+        "align CSVs equal ({} files + statistics), {} compare artifacts "
+        "equal ({} structure hits by sequence search), max |dist diff| "
+        "{:.2e} A; launches {}".format(
+            ", ".join(stages), secs, json.dumps(runtime_seconds(state)),
+            len(files["dropped"]), state["num_sequences"], host_align_secs,
+            host_secs, len(equal), compared, len(hits), err,
+            json.dumps(counts)))
+    return counts
+
+
+def phase9c(tmp, full, couplings_kw, not_produced):
+    """The full-width job: the phase-6b planted synthetic (N=16384 + the
+    query, L=160) returned by the fake jackhmmer as Stockholm, through
+    align standard (N_eff), couplings (parity), compare by_alignment
+    against the ten seeded structures of phase 8c (the fake search of the
+    SIFTS sequence file finds the target's entry) and mutate. Returns the
+    job's launches."""
+    import pandas as pd
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import compare_fixtures as ss
+    from evcouplings_torch.align.alignment import Alignment
+
+    root = os.path.join(tmp, "search_full")
+    structures, rows = ss.full_structure_set(160, PLANTED)
+    structure_dir, _ = write_structures(root, structures, rows,
+                                        truncated=("1t10",))
+    t = time.perf_counter()
+    files = search_files(os.path.join(SEARCH_DIR, "full"), full, rows,
+                         False)
+    prep_secs = time.perf_counter() - t
+    uniref_sto = os.path.join(SEARCH_DIR, "full", "uniref.sto")
+    t = time.perf_counter()
+    raw = Alignment.from_path(uniref_sto, "stockholm", device="cpu")
+    read_secs = time.perf_counter() - t
+    mb = os.path.getsize(uniref_sto) / 1e6
+    stages = ["align", "couplings", "compare"]
+    if have_matplotlib():
+        stages.append("mutate")
+    config = search_config(os.path.join(root, "job"), files, structure_dir,
+                           couplings_kw, stages)
+    state, counts, secs = run_job(config)
+    assert counts["K1"] == 2 and counts["K4"] > 0, counts
+    mut_secs = 0.0
+    if "mutate" not in stages:
+        _, mut_secs = run_mutate(state["model_file"], os.path.join(
+            root, "mutate", "job"), not_produced)
+    hits = pd.read_csv(state["pdb_structure_hits_file"],
+                       keep_default_na=False)
+    assert len(hits) == 13 and "NA" in set(hits.pdb_chain), hits
+    longrange = pd.read_csv(state["ec_compared_longrange_file"])
+    top8 = longrange.iloc[:8]
+    want8 = {(i + 1, j + 1) for i, j in PLANTED}
+    assert set(zip(top8.i, top8.j)) == want8, top8
+    assert (top8.precision == 1.0).all() and (top8.dist <= 5).all(), top8
+    log("phase 9c full-width search job [{}] N={} ({} rows searched, "
+        "N_eff {:.1f}) L={}: {:.2f} s; stages {}; mutate {:.2f} s; the "
+        "{:.1f} MB Stockholm result read by the port's Python reader "
+        "{:.2f} s ({} x {}); fake search files written in {:.2f} s; {} "
+        "structure hits by sequence search; top 8 long-range compared ECs "
+        "= the 8 planted pairs, precision 1.0; launches {}".format(
+            ", ".join(stages), state["num_sequences"], raw.N,
+            state["effective_sequences"], state["num_sites"], secs,
+            json.dumps(runtime_seconds(state)), mut_secs, mb, read_secs,
+            raw.N, raw.L, prep_secs, len(hits), json.dumps(counts)))
+    return counts
+
+
 def run_job(config):
     """One pipeline job through execute_wrapped, its kernel launches
     counted from zero, and its final state; every file the final outcfg
@@ -1672,10 +1971,28 @@ def main():
     log("phase 8 launches by job: {}; phase 8 took {:.1f} s".format(
         json.dumps(phase8), time.perf_counter() - t8))
 
+    # ---- phase 9: the sampler, and the search protocols' jobs (K1 twice
+    # per job: the align stage's N_eff and the couplings stage)
+    import shutil
+
+    t9 = time.perf_counter()
+    shutil.rmtree(SEARCH_DIR, ignore_errors=True)
+    phase9_probe()
+    phase9a_sampler()
+    phase9 = {"9b small search job": phase9b(tmp, small, not_produced),
+              "9c full-width search job": phase9c(tmp, full,
+                                                  sample_couplings,
+                                                  not_produced)}
+    phase9_launches = {k: sum(c[k] for c in phase9.values())
+                       for k in kernel_counts()}
+    log("phase 9 launches by job: {}; phase 9 took {:.1f} s".format(
+        json.dumps(phase9), time.perf_counter() - t9))
+
     for k, row in rows.items():
         row["launches"] = launches[k]
         row["pipeline_launches"] = pipeline_launches[k]
         row["compare_job_launches"] = phase8_launches[k]
+        row["search_job_launches"] = phase9_launches[k]
     for item in sorted(not_produced):
         log("phase 6 not produced:", item)
     log(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4")]}))

@@ -22,6 +22,39 @@ import numpy as np
 from evcouplings_torch.utils.calculations import entropy_rows
 from evcouplings_torch.utils.helpers import DefaultOrderedDict, wrap
 
+
+# ---------------------------------------------------------------------
+# Module-level entry points at the JAX package's import paths. They run
+# the port's tensor operations on `device` (None: the CUDA device, "cpu":
+# the host) and return float64 numpy arrays, as the JAX ones do; imports
+# are deferred so loading an alignment does not need them.
+# ---------------------------------------------------------------------
+
+def frequencies(matrix, seq_weights, num_symbols, device=None):
+    """Weighted single-site frequencies f_i (L x q)."""
+    from evcouplings_torch.ops.frequencies import frequencies as _op
+    return _op(matrix, seq_weights, num_symbols, device=device)
+
+
+def pair_frequencies(matrix, seq_weights, num_symbols, fi, device=None):
+    """Weighted pair frequencies f_ij (L x L x q x q)."""
+    from evcouplings_torch.ops.frequencies import pair_frequencies as _op
+    return _op(matrix, seq_weights, num_symbols, fi, device=device)
+
+
+def num_cluster_members(matrix, identity_threshold, device=None):
+    """Neighbor counts at >= identity_threshold (the O(N^2 L)
+    reweighting pass; K1 on the card)."""
+    from evcouplings_torch.ops.weights import num_cluster_members as _op
+    return _op(matrix, identity_threshold, device=device).cpu().numpy()
+
+
+def identities_to_seq(seq, matrix, device=None):
+    """Absolute identity counts of every row to a target sequence."""
+    from evcouplings_torch.ops.weights import identities_to_seq as _op
+    return _op(seq, matrix, device=device).cpu().numpy()
+
+
 # constants
 GAP = "-"
 MATCH_GAP = GAP

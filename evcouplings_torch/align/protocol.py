@@ -1,40 +1,51 @@
 """
 Alignment-stage protocols (port of evcouplings_tpu/align/protocol.py):
-ingest a multiple sequence alignment, focus it on the target sequence,
-filter, and emit statistics.
+build or ingest a multiple sequence alignment, focus it on the target
+sequence, filter, and emit statistics.
 
-The `existing` protocol is ported: it runs no external binary. Config
-keys, output file names, outcfg keys and table columns are the JAX
-package's. The numeric work (identities, frequencies, conservation,
-N_eff through K1) runs on the job's `device` through the Alignment
-container. The protocols that run jackhmmer/hmmbuild/hmmsearch or
-download sequences (jackhmmer_search, hmmbuild_and_search, standard,
-complex), and the hhfilter identity filter (seqid_filter), raise
-NotImplementedError naming ROADMAP A19.
+Config keys, output file names, outcfg keys and table columns are the
+JAX package's. The homology search (jackhmmer, hmmbuild + hmmsearch) and
+the hhfilter identity filter (seqid_filter) run on the host as external
+programs through align.tools, as in the JAX package; the target sequence
+is downloaded only when no local sequence_file is named. The numeric work
+(identities, frequencies, conservation, N_eff through K1) runs on the
+job's `device` (None: the CUDA device, "cpu": the host) through the
+Alignment container. The `complex` protocol needs the complex pipeline
+(ROADMAP A19c) and raises NotImplementedError.
 """
 
+import os
 from collections import OrderedDict
 from collections.abc import Iterable
 import re
+from shutil import copy
 
 import numpy as np
 import pandas as pd
 
+from evcouplings_torch import BailoutException
 from evcouplings_torch._device import resolve_device
+from evcouplings_torch.align import tools as at
 from evcouplings_torch.align.alignment import (
     Alignment,
     detect_format,
     parse_header,
+    read_fasta,
     write_fasta,
 )
 from evcouplings_torch.couplings.mapping import Segment
 from evcouplings_torch.utils.config import (
     InvalidParameterError,
+    MissingParameterError,
     check_required,
+    read_config_file,
     write_config_file,
 )
 from evcouplings_torch.utils.system import (
+    ResourceError,
     create_prefix_folders,
+    get,
+    valid_file,
     verify_resources,
 )
 
@@ -70,12 +81,17 @@ def _write_aligned(path, alignment, format="fasta"):
         alignment.write(handle, format)
 
 
-def _load_autodetected(path, device, label="Input alignment"):
-    """Open an alignment of unknown on-disk format (detected from its
-    content and file extension) whose numerics run on `device`."""
+def _load_autodetected(path, device, label="Input alignment",
+                       filename_hint=True):
+    """Open an alignment of unknown on-disk format whose numerics run on
+    `device`.
+
+    filename_hint=False detects from the content only (hmmbuild_and_search
+    does): an .a3m-named aligned-FASTA input must not be reshaped by the
+    a3m parser there."""
     verify_resources("{} does not exist".format(label), path)
     with open(path) as handle:
-        fmt = detect_format(handle, filepath=path)
+        fmt = detect_format(handle, filepath=path if filename_hint else "")
     if fmt is None:
         raise InvalidParameterError(
             "Format of input alignment {} could not be "
@@ -110,10 +126,15 @@ def _promote_row(ali, row):
     return ali.select(sequences=order)
 
 
-def _focus_on_target(ali_raw, focus_index, first_index):
+def _focus_on_target(ali_raw, focus_index, first_index,
+                     prefer_header=False):
     """Restrict an alignment to the target row's residue columns and
-    derive its region numbering (an explicit first_index wins over the
-    header's /start-end range).
+    derive its region numbering.
+
+    prefer_header=False (the `existing` protocol): an explicit
+    first_index always wins over header-derived numbering.
+    prefer_header=True (`hmmbuild_and_search`): first_index only fills
+    in when the header has no /start-end range.
 
     Returns dict(ali, header, id, sequence, region_start, region_end).
     """
@@ -129,7 +150,10 @@ def _focus_on_target(ali_raw, focus_index, first_index):
     raw_header = ali_raw.ids[focus_index]
     name, start, end = parse_header(raw_header.split()[0])
 
-    if first_index is not None:
+    override = first_index is not None and (
+        start is None or end is None if prefer_header else True
+    )
+    if override:
         start = first_index
         end = start + len(residues) - 1
 
@@ -147,6 +171,133 @@ def _focus_on_target(ali_raw, focus_index, first_index):
         "sequence": residues,
         "region_start": start, "region_end": end,
     }
+
+
+def _search_with_reuse(outcfg_file, kwargs, perform_search):
+    """Run an external homology search, or restart from the saved
+    search outcfg when reuse_alignment is set."""
+    if kwargs["reuse_alignment"] and valid_file(outcfg_file):
+        saved = read_config_file(outcfg_file)
+        verify_resources(
+            "Tried to reuse alignment, but empty or does not exist",
+            saved["alignment"], saved["domtblout"],
+        )
+        return saved
+
+    result = perform_search()
+    # the bulky stdout log is dropped immediately
+    try:
+        os.remove(result["output"])
+    except OSError:
+        pass
+    write_config_file(outcfg_file, result)
+    return result
+
+
+def _region_segment(sequence_id, start, end):
+    span = range(start, end + 1)
+    return [Segment("aa", sequence_id, start, end, span).to_list()]
+
+
+# ---------------------------------------------------------------------------
+# sequence helpers
+# ---------------------------------------------------------------------------
+
+def fetch_sequence(sequence_id, sequence_file, sequence_download_url,
+                   out_file):
+    """Obtain the target sequence from a local file, or by download when
+    no sequence_file is named.
+
+    Returns (path, (header, sequence)).
+    """
+    if sequence_file is not None:
+        try:
+            copy(sequence_file, out_file)
+        except FileNotFoundError:
+            raise ResourceError(
+                "sequence_file does not exist: {}".format(sequence_file)
+            )
+    else:
+        url = sequence_download_url.format(sequence_id)
+        get(url, out_file, allow_redirects=True)
+
+    verify_resources("Input sequence missing", out_file)
+
+    with open(out_file) as handle:
+        record = next(read_fasta(handle))
+    return out_file, record
+
+
+def cut_sequence(sequence, sequence_id, region=None, first_index=None,
+                 out_file=None):
+    """Cut a sequence to a subregion (inclusive end) and optionally save
+    it with a `>id/start-end` header.
+
+    Returns ((start, end), subsequence).
+    """
+    origin = 1 if first_index is None else first_index
+
+    if region is None:
+        region = (origin, origin + len(sequence) - 1)
+        subsequence = sequence
+    else:
+        lo = region[0] - origin
+        hi = region[1] - origin + 1
+        if lo < 0 or hi > len(sequence):
+            raise InvalidParameterError(
+                "Invalid sequence range: "
+                "region={} first_index={} len(sequence)={}".format(
+                    region, origin, len(sequence)
+                )
+            )
+        subsequence = sequence[lo:hi]
+
+    if out_file is not None:
+        record = ("{}/{}-{}".format(sequence_id, *region), subsequence)
+        with open(out_file, "w") as handle:
+            write_fasta([record], handle)
+
+    return region, subsequence
+
+
+def _bitscore_flag(value, seq_len):
+    """Bitscores: floats are target-length-relative, ints/strings
+    absolute."""
+    if isinstance(value, float):
+        return "{:.1f}".format(value * seq_len)
+    return str(value)
+
+
+def _evalue_flag(value):
+    """E-values: ints are negative decimal exponents (2 -> "1E-2"),
+    floats/strings literal."""
+    if isinstance(value, int):
+        return "1E{}".format(-value)
+    return str(value).upper()
+
+
+def search_thresholds(use_bitscores, seq_threshold, domain_threshold,
+                      seq_len):
+    """Normalize HMMER inclusion thresholds to command-line strings.
+
+    The sequence-level threshold defaults to the domain-level one.
+    """
+    if domain_threshold is None:
+        raise MissingParameterError(
+            "domain_threshold must be explicitly defined "
+            "and may not be None/empty"
+        )
+
+    def render(value):
+        if use_bitscores:
+            return _bitscore_flag(value, seq_len)
+        return _evalue_flag(value)
+
+    domain_flag = render(domain_threshold)
+    seq_flag = (
+        domain_flag if seq_threshold is None else render(seq_threshold)
+    )
+    return seq_flag, domain_flag
 
 
 # annotation fields extracted from UniProt/UniRef headers
@@ -340,11 +491,17 @@ def modify_alignment(focus_ali, target_seq_index, target_seq_id,
     target_seq_index = 0
     _write_aligned(focus_fasta_file, ali)
 
-    # optional pairwise identity filter: the external hhfilter binary
+    # optional pairwise identity filter via external hhfilter
     if kwargs["seqid_filter"] is not None:
-        raise NotImplementedError(
-            "seqid_filter runs the external hhfilter binary, which the "
-            "port does not call yet (ROADMAP A19)")
+        filtered_file = prefix + "_filtered.a3m"
+        at.run_hhfilter(
+            focus_fasta_file, filtered_file,
+            threshold=kwargs["seqid_filter"],
+            columns="first", binary=kwargs["hhfilter"],
+        )
+        with open(filtered_file) as handle:
+            ali = Alignment.from_file(handle, "a3m", device=ali.device)
+        _write_aligned(prefix + "_raw_focus_filtered.fasta", ali)
 
     # fragment filter: drop rows covering too little of the target
     if kwargs["minimum_sequence_coverage"] is not None:
@@ -478,24 +635,268 @@ def existing(**kwargs):
     return outcfg
 
 
-def _external_search(name):
-    """Protocols that run external search binaries (jackhmmer, hmmbuild,
-    hmmsearch, hhfilter) or download sequences raise until the port
-    calls them."""
-    def protocol(**kwargs):
-        raise NotImplementedError(
-            "align protocol {!r} runs external binaries or downloads "
-            "that the port does not call yet (ROADMAP A19); use "
-            "protocol: existing".format(name))
-    protocol.__name__ = name
-    protocol.__doc__ = "Not ported yet (ROADMAP A19): {}.".format(name)
-    return protocol
+def jackhmmer_search(**kwargs):
+    """Protocol: iterative jackhmmer search against a sequence database
+    (on the host), restarting from the saved search outcfg when
+    reuse_alignment is set."""
+    check_required(
+        kwargs,
+        [
+            "prefix", "sequence_id", "sequence_file",
+            "sequence_download_url", "region", "first_index",
+            "use_bitscores", "domain_threshold", "sequence_threshold",
+            "database", "iterations", "cpu", "nobias", "reuse_alignment",
+            "checkpoints_hmm", "checkpoints_ali", "jackhmmer",
+            "extract_annotation",
+        ],
+    )
+    prefix = kwargs["prefix"]
+    _require_clean_identifier(kwargs["sequence_id"])
+    create_prefix_folders(prefix)
+
+    target_sequence_file = prefix + ".fa"
+    full_sequence_file = prefix + "_full.fa"
+
+    _, (_full_id, full_seq) = fetch_sequence(
+        kwargs["sequence_id"], kwargs["sequence_file"],
+        kwargs["sequence_download_url"], full_sequence_file,
+    )
+
+    (region_start, region_end), query_seq = cut_sequence(
+        full_seq, kwargs["sequence_id"], kwargs["region"],
+        kwargs["first_index"], target_sequence_file,
+    )
+
+    def perform_search():
+        seq_flag, domain_flag = search_thresholds(
+            kwargs["use_bitscores"], kwargs["sequence_threshold"],
+            kwargs["domain_threshold"], len(query_seq),
+        )
+        passthrough = {
+            name: kwargs[name] for name in (
+                "use_bitscores", "iterations", "nobias", "cpu",
+                "checkpoints_hmm", "checkpoints_ali",
+            )
+        }
+        hits = at.run_jackhmmer(
+            query=target_sequence_file,
+            database=kwargs[kwargs["database"]],
+            prefix=prefix,
+            domain_threshold=domain_flag,
+            seq_threshold=seq_flag,
+            binary=kwargs["jackhmmer"],
+            **passthrough,
+        )
+        return dict(hits._asdict())
+
+    ali = _search_with_reuse(
+        prefix + ".align_jackhmmer_search.outcfg", kwargs, perform_search
+    )
+
+    return {
+        "sequence_id": kwargs["sequence_id"],
+        "target_sequence_file": target_sequence_file,
+        "sequence_file": full_sequence_file,
+        "first_index": kwargs["first_index"],
+        "focus_mode": True,
+        "raw_alignment_file": ali["alignment"],
+        "hittable_file": ali["domtblout"],
+        "segments": _region_segment(
+            kwargs["sequence_id"], region_start, region_end
+        ),
+        "focus_sequence": "{}/{}-{}".format(
+            kwargs["sequence_id"], region_start, region_end
+        ),
+    }
 
 
-jackhmmer_search = _external_search("jackhmmer_search")
-hmmbuild_and_search = _external_search("hmmbuild_and_search")
-standard = _external_search("standard")
-complex = _external_search("complex")
+def _assemble_hmmsearch_fasta(alignment_result, prefix):
+    """Prepend the (RF-gapped) query sequence to an hmmsearch Stockholm
+    result and save as FASTA, so downstream focusing/numbering works."""
+    with open(alignment_result["target_sequence_file"]) as handle:
+        query_ali = Alignment.from_file(handle, format="fasta")
+
+    out_path = prefix + "_raw.fasta"
+    search_hits = alignment_result["raw_alignment_file"]
+
+    if not valid_file(search_hits):
+        # empty search result: the "alignment" is just the query
+        _write_aligned(out_path, query_ali)
+        return out_path
+
+    hits_ali = Alignment.from_path(search_hits, "stockholm")
+
+    rf = hits_ali.annotation.get("GC", {}).get("RF")
+    if rf is None:
+        raise ValueError(
+            "Stockholm alignment {} missing RF annotation of match "
+            "states".format(search_hits)
+        )
+
+    is_match = [symbol == "x" for symbol in rf]
+    if sum(is_match) != query_ali.L:
+        raise ValueError(
+            "HMMsearch result {} does not have a one-to-one mapping to "
+            "the query sequence columns".format(search_hits)
+        )
+
+    # distribute query residues over match states, gaps elsewhere
+    residues = iter(query_ali.matrix[0, :])
+    gapped_query = "".join(
+        next(residues) if m else "-" for m in is_match
+    )
+
+    with open(out_path, "w") as handle:
+        Alignment.from_dict({query_ali.ids[0]: gapped_query}).write(handle)
+        hits_ali.write(handle)
+    return out_path
+
+
+def hmmbuild_and_search(**kwargs):
+    """Protocol: build an HMM from an input alignment and search it
+    against a sequence database (both on the host). Stops at the raw
+    focus alignment: the downstream stages run the filtering."""
+    # all columns of the input alignment become match states
+    SYMFRAC_HMMBUILD = 0.0
+
+    check_required(
+        kwargs,
+        [
+            "prefix", "sequence_id", "alignment_file",
+            "use_bitscores", "domain_threshold", "sequence_threshold",
+            "database", "cpu", "nobias", "reuse_alignment",
+            "hmmbuild", "hmmsearch", "first_index",
+        ],
+    )
+    prefix = kwargs["prefix"]
+    _require_clean_identifier(kwargs["sequence_id"])
+    create_prefix_folders(prefix)
+
+    # --- focus the input alignment on the target sequence ---
+    ali_raw, _fmt = _load_autodetected(
+        kwargs["alignment_file"], device=kwargs.get("device"),
+        filename_hint=False,
+    )
+
+    focus_index = _locate_row(ali_raw, kwargs["sequence_id"])
+    target = _focus_on_target(
+        ali_raw, focus_index, kwargs["first_index"], prefer_header=True
+    )
+    region_start = target["region_start"]
+    region_end = target["region_end"]
+
+    target_sequence_file = prefix + ".fa"
+    with open(target_sequence_file, "w") as handle:
+        write_fasta([(target["header"], target["sequence"])], handle)
+
+    focus_fasta_file = prefix + "_raw_focus_input.fasta"
+    _write_aligned(
+        focus_fasta_file, _promote_row(target["ali"], focus_index)
+    )
+
+    # --- hmmbuild + hmmsearch (or restart from saved outcfg) ---
+    def perform_search():
+        seq_flag, domain_flag = search_thresholds(
+            kwargs["use_bitscores"], kwargs["sequence_threshold"],
+            kwargs["domain_threshold"], region_end - region_start + 1,
+        )
+        built = at.run_hmmbuild(
+            alignment_file=focus_fasta_file,
+            prefix=prefix,
+            symfrac=SYMFRAC_HMMBUILD,
+            cpu=kwargs["cpu"],
+            binary=kwargs["hmmbuild"],
+        )
+        hits = at.run_hmmsearch(
+            hmmfile=built.hmmfile,
+            database=kwargs[kwargs["database"]],
+            prefix=prefix,
+            use_bitscores=kwargs["use_bitscores"],
+            domain_threshold=domain_flag,
+            seq_threshold=seq_flag,
+            nobias=kwargs["nobias"],
+            cpu=kwargs["cpu"],
+            binary=kwargs["hmmsearch"],
+        )
+        return dict(hits._asdict(), hmmfile=built.hmmfile)
+
+    ali = _search_with_reuse(
+        prefix + ".align_hmmbuild_and_search.outcfg", kwargs,
+        perform_search,
+    )
+
+    outcfg = {
+        "sequence_file": target_sequence_file,
+        "first_index": region_start,
+        "input_raw_focus_alignment": focus_fasta_file,
+        "target_sequence_file": target_sequence_file,
+        "focus_mode": True,
+        "raw_alignment_file": ali["alignment"],
+        "hittable_file": ali["domtblout"],
+    }
+    outcfg["raw_focus_alignment_file"] = _assemble_hmmsearch_fasta(
+        outcfg, prefix
+    )
+    outcfg["segments"] = _region_segment(
+        kwargs["sequence_id"], region_start, region_end
+    )
+    outcfg["focus_sequence"] = "{}/{}-{}".format(
+        kwargs["sequence_id"], region_start, region_end
+    )
+    return outcfg
+
+
+def standard(**kwargs):
+    """Protocol: jackhmmer search (on the host), then focus/filter the
+    result with its numerics on the job's `device` (buildali4
+    workflow)."""
+    check_required(kwargs, ["prefix", "extract_annotation"])
+
+    device = resolve_device(kwargs.get("device"))
+    prefix = kwargs["prefix"]
+    create_prefix_folders(prefix)
+
+    search_outcfg = jackhmmer_search(**kwargs)
+
+    segment = Segment.from_list(search_outcfg["segments"][0])
+
+    ali_raw = Alignment.from_path(
+        search_outcfg["raw_alignment_file"], "stockholm", device=device
+    )
+
+    annotation_file = None
+    if kwargs["extract_annotation"]:
+        annotation_file = prefix + "_annotation.csv"
+        extract_header_annotation(ali_raw).to_csv(
+            annotation_file, index=False
+        )
+
+    # jackhmmer puts the query first; focus on its non-gap columns
+    query_has_residue = ali_raw[0] != "-"
+    focus_ali = ali_raw.select(columns=query_has_residue)
+
+    mod_outcfg, ali = modify_alignment(
+        focus_ali, 0, segment.sequence_id, segment.region_start, **kwargs
+    )
+
+    outcfg = {**search_outcfg, **mod_outcfg}
+    if annotation_file is not None:
+        outcfg["annotation_file"] = annotation_file
+
+    write_config_file(prefix + ".align_standard.outcfg", outcfg)
+
+    if len(ali) <= 1:
+        raise BailoutException("align: No sequences found")
+
+    return outcfg
+
+
+def complex(**kwargs):
+    """Not ported yet (ROADMAP A19c): a monomer alignment protocol plus
+    the genome-location annotations complex pairing needs."""
+    raise NotImplementedError(
+        "align protocol 'complex' needs the complex pipeline, which is "
+        "not ported yet (ROADMAP A19c)")
 
 
 # protocol registry: function names double as the config-facing names

@@ -10,9 +10,11 @@ matplotlib is imported inside plot_cm (and print_pdb_structure_info)
 only: a config whose plot settings select no figure (no
 plot_probability_cutoffs, plot_lowest_count above plot_highest_count)
 runs the whole stage without it; one that asks for figures on a machine
-without matplotlib raises ImportError. Structure identification by
-sequence search (by_alignment: True) and the `complex` protocol raise
-NotImplementedError naming ROADMAP A19.
+without matplotlib raises ImportError. Structures are found by a SIFTS
+lookup of sequence_id, or with by_alignment: True by a sequence search
+(jackhmmer, or hmmbuild + hmmsearch) against the SIFTS sequence
+database on the host. The `complex` protocol needs the complex pipeline
+(ROADMAP A19c) and raises NotImplementedError.
 """
 
 from copy import deepcopy
@@ -29,7 +31,7 @@ from evcouplings_torch.compare.distances import (
 )
 from evcouplings_torch.compare.ecs import coupling_scores_compared
 from evcouplings_torch.compare.pdb import load_structures
-from evcouplings_torch.compare.sifts import _SEARCH_NOT_PORTED, SIFTS
+from evcouplings_torch.compare.sifts import SIFTS
 from evcouplings_torch.utils.config import (
     InvalidParameterError,
     check_required,
@@ -109,9 +111,8 @@ def print_pdb_structure_info(sifts_result,
 
 
 def _identify_structures(**kwargs):
-    """Identify 3D structures by a SIFTS lookup of sequence_id (the
-    sequence search, by_alignment, raises: ROADMAP A19); returns
-    (filtered SIFTSResult, unfiltered SIFTSResult)."""
+    """Identify 3D structures (via SIFTS lookup or sequence search);
+    returns (filtered SIFTSResult, unfiltered SIFTSResult)."""
     def _restrict_to_pdb_ids(result, id_list):
         trimmed = deepcopy(result)
         keep = trimmed.hits.pdb_id.isin(id_list)
@@ -133,20 +134,31 @@ def _identify_structures(**kwargs):
         ],
     )
 
-    # the sequence search needs HMMER: refused before the SIFTS table is
-    # read (a missing table would be downloaded)
-    if kwargs["by_alignment"]:
-        raise NotImplementedError(_SEARCH_NOT_PORTED)
-
     s = SIFTS(
         kwargs["sifts_mapping_table"], kwargs["sifts_sequence_db"]
     )
 
     # multimer comparison needs every chain of a structure; monomer
     # comparison reduces to one chain per structure
-    sifts_map = s.by_uniprot_id(
-        kwargs["sequence_id"], reduce_chains=not kwargs["compare_multimer"]
-    )
+    reduce_chains = not kwargs["compare_multimer"]
+
+    if kwargs["by_alignment"]:
+        method = kwargs["pdb_alignment_method"]
+        if method not in ("jackhmmer", "hmmsearch"):
+            raise InvalidParameterError(
+                "Invalid pdb search method: "
+                "{}. Valid selections are: jackhmmer, "
+                "hmmsearch".format(method)
+            )
+        sifts_map = s.by_alignment(
+            reduce_chains=reduce_chains,
+            min_overlap=kwargs["alignment_min_overlap"],
+            **kwargs,
+        )
+    else:
+        sifts_map = s.by_uniprot_id(
+            kwargs["sequence_id"], reduce_chains=reduce_chains
+        )
 
     sifts_map_full = deepcopy(sifts_map)
 
@@ -488,10 +500,10 @@ def standard(**kwargs):
 
 def complex(**kwargs):
     """Protocol: compare complex ECs (intra + inter) to 3D structures.
-    Not ported yet (ROADMAP A19)."""
+    Not ported yet (ROADMAP A19c)."""
     raise NotImplementedError(
         "the compare stage's complex protocol is not ported yet "
-        "(ROADMAP A19)")
+        "(ROADMAP A19c)")
 
 
 PROTOCOLS = {

@@ -6,21 +6,39 @@ evcouplings_tpu/compare/sifts.py (host pandas).
 The SIFTS table and the UniProt sequence file are downloaded only when
 the files named are missing; a job on a machine without network names
 local files. Structure identification by sequence search (by_alignment,
-find_homologs) needs jackhmmer or hmmsearch through the align stage's
-search protocols, which the port does not run yet: both raise
-NotImplementedError naming ROADMAP A19.
+find_homologs) runs jackhmmer or hmmbuild + hmmsearch on the host
+through the align stage's search protocols.
 """
 
 import json
 import time
+from collections import OrderedDict
+from copy import deepcopy
+from os import path
 
 import pandas as pd
 
-from evcouplings_torch.align.alignment import read_fasta
+from evcouplings_torch.align.alignment import (
+    Alignment,
+    parse_header,
+    read_fasta,
+)
+from evcouplings_torch.align.protocol import (
+    hmmbuild_and_search,
+    jackhmmer_search,
+)
+from evcouplings_torch.align.tools import read_hmmer_domtbl
+from evcouplings_torch.compare.mapping import map_indices
+from evcouplings_torch.utils.config import (
+    InvalidParameterError,
+    check_required,
+)
+from evcouplings_torch.utils.helpers import range_overlap
 from evcouplings_torch.utils.system import (
     ResourceError,
     get_urllib,
     temp,
+    tempdir,
     valid_file,
 )
 
@@ -33,11 +51,38 @@ SIFTS_REST_API = (
     "http://www.ebi.ac.uk/pdbe/api/mappings/uniprot_segments/{}"
 )
 
-_SEARCH_NOT_PORTED = (
-    "structure identification by sequence search (jackhmmer/hmmsearch "
-    "against the SIFTS sequence database) is not ported yet (ROADMAP "
-    "A19); use by_alignment: False with a SIFTS lookup of sequence_id"
-)
+# default parametrization for homolog search against the PDB seqres
+# database (overridden by by_alignment kwargs); key set mirrors the
+# align-stage search protocols' config contract
+HMMER_CONFIG = {
+    "prefix": None,
+    "sequence_id": None,
+    "sequence_file": None,
+    "region": None,
+    "first_index": 1,
+    # search thresholds
+    "use_bitscores": True,
+    "domain_threshold": 0.5,
+    "sequence_threshold": 0.5,
+    "iterations": 1,
+    "database": "sequence_database",
+    # execution knobs
+    "extract_annotation": False,
+    "cpu": 1,
+    "nobias": False,
+    "reuse_alignment": False,
+    "checkpoints_hmm": False,
+    "checkpoints_ali": False,
+    # database wiring (hmmbuild/hmmsearch defaults make the
+    # pdb_alignment_method="hmmsearch" path usable without explicit
+    # binary kwargs, mirroring the jackhmmer default)
+    "jackhmmer": "jackhmmer",
+    "hmmbuild": "hmmbuild",
+    "hmmsearch": "hmmsearch",
+    "sequence_database": None,
+    "sequence_download_url":
+        "http://rest.uniprot.org/uniprot/{}.fasta",
+}
 
 
 def fetch_uniprot_mapping(ids, from_db="UniProtKB_AC-ID",
@@ -147,9 +192,71 @@ def fetch_uniprot_mapping(ids, from_db="UniProtKB_AC-ID",
 
 
 def find_homologs(pdb_alignment_method="jackhmmer", **kwargs):
-    """Homolog search of the query in a sequence database (jackhmmer or
-    hmmbuild+hmmsearch): not ported yet (ROADMAP A19)."""
-    raise NotImplementedError(_SEARCH_NOT_PORTED)
+    """Find homologs of the query in a sequence database using
+    jackhmmer or hmmbuild+hmmsearch (on the host); returns (alignment,
+    hit table). Hit names are UniProt-style db|AC|ID."""
+    config = {**HMMER_CONFIG, **kwargs}
+
+    if config["prefix"] is None:
+        config["prefix"] = path.join(tempdir(), "compare")
+
+    check_required(config, ["prefix"])
+
+    if pdb_alignment_method == "hmmsearch":
+        updated_config = deepcopy(config)
+        updated_config["alignment_file"] = config.get(
+            "raw_focus_alignment_file"
+        )
+        ar = hmmbuild_and_search(**updated_config)
+
+        # raw focus alignment guarantees the query sequence is present
+        with open(ar["raw_focus_alignment_file"]) as a:
+            ali = Alignment.from_file(a, "fasta")
+    elif pdb_alignment_method == "jackhmmer":
+        ar = jackhmmer_search(**config)
+
+        with open(ar["raw_alignment_file"]) as a:
+            ali = Alignment.from_file(a, "stockholm")
+
+        with open(config["prefix"] + "_raw.fasta", "w") as f:
+            ali.write(f)
+    else:
+        raise InvalidParameterError(
+            "Invalid pdb_alignment_method selected. Valid options "
+            "are: jackhmmer, hmmsearch"
+        )
+
+    hits = read_hmmer_domtbl(ar["hittable_file"])
+
+    hits = hits.assign(
+        uniprot_ac=hits.target_name.map(lambda x: x.split("|")[1]),
+        uniprot_id=hits.target_name.map(lambda x: x.split("|")[2]),
+    ).rename(columns={
+        "domain_score": "bitscore",
+        "domain_i_Evalue": "e_value",
+        "ali_from": "alignment_start",
+        "ali_to": "alignment_end",
+        "hmm_from": "hmm_start",
+        "hmm_to": "hmm_end",
+    })
+
+    hits = hits.assign(
+        alignment_start=pd.to_numeric(hits.alignment_start).astype(int),
+        alignment_end=pd.to_numeric(hits.alignment_end).astype(int),
+    )
+    hits = hits.assign(
+        alignment_id=(
+            hits.target_name + "/"
+            + hits.alignment_start.astype(str) + "-"
+            + hits.alignment_end.astype(str)
+        ),
+    )
+
+    hits = hits.loc[
+        :, ["alignment_id", "uniprot_ac", "uniprot_id",
+            "alignment_start", "alignment_end", "bitscore", "e_value"]
+    ]
+    return ali, hits
 
 
 class SIFTSResult:
@@ -325,6 +432,164 @@ class SIFTS:
         return hit_table
 
     def by_alignment(self, min_overlap=20, reduce_chains=False, **kwargs):
-        """Structures found by aligning the query against the SIFTS
-        sequence database: not ported yet (ROADMAP A19)."""
-        raise NotImplementedError(_SEARCH_NOT_PORTED)
+        """Find structures by aligning the query against the SIFTS
+        sequence database (jackhmmer / hmmsearch), then intersecting
+        hit regions with structural coverage."""
+        def _create_mapping(r):
+            _, query_start, query_end = parse_header(ali.ids[0])
+
+            # query -> PDB-entry UniProt numbering
+            m = map_indices(
+                ali[0], query_start, query_end,
+                ali[r["alignment_id"]],
+                r["alignment_start"], r["alignment_end"],
+            )
+
+            # PDB-entry UniProt numbering -> seqres numbering
+            n = pd.DataFrame({
+                "j": [
+                    str(v) for v in
+                    range(r["uniprot_start"], r["uniprot_end"] + 1)
+                ],
+                "k": [
+                    str(v) for v in
+                    range(r["resseq_start"], r["resseq_end"] + 1)
+                ],
+            })
+
+            mn = m.merge(n, on="j", how="inner").dropna()
+            return dict(zip(mn.k, mn.i)), mn
+
+        if self.sequence_file is None:
+            raise ValueError(
+                "Need to have SIFTS sequence file. "
+                "Create using create_sequence_file() "
+                "method or constructor."
+            )
+
+        ali, hits = find_homologs(
+            sequence_database=self.sequence_file, **kwargs
+        )
+
+        hits = hits.merge(self.table, on="uniprot_ac", suffixes=("", "_"))
+
+        # +1: range_overlap treats ends as exclusive. Deliberate
+        # deviation from the reference, which feeds inclusive ends
+        # straight in — undercounting every overlap by one residue
+        # (a hit whose true overlap EQUALS min_overlap passes here
+        # but is dropped there) and crashing on single-residue
+        # segments
+        hits = hits.assign(overlap=[
+            range_overlap(
+                (r["uniprot_start"], r["uniprot_end"] + 1),
+                (r["alignment_start"], r["alignment_end"] + 1),
+            )
+            for _, r in hits.iterrows()
+        ])
+
+        mappings = {}
+        mapping_rows = []
+
+        # multiple segments per hit+chain are merged into one mapping
+        hit_columns = ["alignment_id", "pdb_id", "pdb_chain"]
+        for i, (hit, grp) in enumerate(hits.groupby(hit_columns)):
+            agg_mapping = {}
+            agg_df_raw = []
+            for _, r in grp.iterrows():
+                map_j, map_j_df = _create_mapping(r)
+                agg_mapping.update(map_j)
+                agg_df_raw.append(map_j_df)
+
+            agg_df = pd.concat(agg_df_raw)
+            mapping_rows.append(list(hit) + [i, len(grp) > 1])
+            mappings[i] = agg_mapping
+
+            prefix = kwargs.get("prefix", None)
+            if prefix is not None:
+                agg_df.rename(columns={
+                    "j": "uniprot_of_pdb_index",
+                    "A_j": "uniprot_of_pdb_residue",
+                    "k": "pdb_seqres_index",
+                }).to_csv(
+                    "{}_mapping{}.csv".format(prefix, i), index=False
+                )
+
+        mapping_df = pd.DataFrame(
+            mapping_rows,
+            columns=hit_columns + ["mapping_index", "grouped_segments"],
+        )
+
+        def _residue_sort_key(res):
+            # PDB coordinate ids may carry a trailing insertion code
+            # letter; order numerically first, then by the letter.
+            # Missing ("nan") and float-formatted values (the SIFTS
+            # table stores None for unobserved coordinates) sort last
+            # instead of crashing the whole by_alignment call
+            text = str(res)
+            if text in ("", "nan", "None"):
+                return float("inf"), ""
+            if text[-1].isalpha():
+                num, ins = text[:-1], text[-1]
+            else:
+                num, ins = text, ""
+            try:
+                return float(num), ins
+            except ValueError:
+                return float("inf"), text
+
+        def _agg_rule(col):
+            # coordinate bounds respect insertion-code order; plain
+            # index bounds are numeric min/max; overlaps add up;
+            # anything else keeps the first segment's value
+            if col == "overlap":
+                return "sum"
+            if col == "coord_start":
+                return lambda vals: sorted(
+                    vals, key=_residue_sort_key
+                )[0]
+            if col == "coord_end":
+                return lambda vals: sorted(
+                    vals, key=_residue_sort_key
+                )[-1]
+            if col.endswith("_start"):
+                return "min"
+            if col.endswith("_end"):
+                return "max"
+            return "first"
+
+        agg_types = OrderedDict(
+            (c, _agg_rule(c)) for c in hits.columns
+            if c not in hit_columns
+        )
+
+        if len(hits) > 0:
+            hits_grouped = hits.groupby(hit_columns).agg(
+                agg_types
+            ).reset_index()
+        else:
+            hits_grouped = hits
+
+        hits_grouped = hits_grouped.merge(mapping_df, on=hit_columns)
+        hits_grouped = hits_grouped.query("overlap >= @min_overlap")
+
+        hits_grouped = hits_grouped.assign(
+            bitscore=pd.to_numeric(
+                hits_grouped.bitscore, errors="coerce"
+            )
+        ).sort_values(by="bitscore", ascending=False)
+
+        if reduce_chains:
+            hits_grouped = hits_grouped.groupby(
+                "pdb_id"
+            ).first().reset_index()
+            hits_grouped = hits_grouped.sort_values(
+                by="bitscore", ascending=False
+            )
+
+        # drop mappings not kept in the final table
+        mappings = {
+            idx: map_ for idx, map_ in mappings.items()
+            if idx in hits_grouped.mapping_index.values
+        }
+
+        return SIFTSResult(hits_grouped, mappings)

@@ -11,7 +11,7 @@ ported with every fit route of couplings/fitter.run_plm (symmetric or
 asymmetric parametrization, exact group-L1, mid-fit checkpoints), and
 `mean_field` (mean-field DCA, couplings/mean_field.py); `complex` raises
 NotImplementedError (it needs the complex pipeline's concatenate stage,
-ROADMAP A19), as do fits over more than one device (ROADMAP A18).
+ROADMAP A19c), as do fits over more than one device (ROADMAP A18).
 """
 
 import os
@@ -587,7 +587,7 @@ def mean_field(**kwargs):
 
 
 # complex ECs need the complex pipeline's concatenate stage
-complex = _unported("complex", "A19")
+complex = _unported("complex", "A19c")
 
 # protocol registry: function names double as the config-facing names
 PROTOCOLS = {

@@ -1,7 +1,7 @@
 """
 Mutation-effect (EVmutation) stage protocols (port of
 evcouplings_tpu/mutate/protocol.py). The `standard` protocol is ported;
-`complex` needs the complex pipeline (ROADMAP A19) and raises
+`complex` needs the complex pipeline (ROADMAP A19c) and raises
 NotImplementedError. The interactive bokeh matrix plots are produced
 only when the optional bokeh package is installed; the static matplotlib
 plots need matplotlib, which is imported where they are drawn.
@@ -160,10 +160,10 @@ def standard(**kwargs):
 
 
 def complex(**kwargs):
-    """Not ported yet (ROADMAP A19): mutation effects for complexes."""
+    """Not ported yet (ROADMAP A19c): mutation effects for complexes."""
     raise NotImplementedError(
         "mutate protocol 'complex' needs the complex pipeline, which is "
-        "not ported yet (ROADMAP A19)")
+        "not ported yet (ROADMAP A19c)")
 
 
 PROTOCOLS = {

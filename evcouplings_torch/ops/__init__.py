@@ -1,3 +1,4 @@
 """Tensor operations of the port: encodings, reweighting, frequencies,
 scores, Hamiltonians, the LBFGS engine, the pseudolikelihood and
-mean-field fits, and the compare stage's minimum-atom distances."""
+mean-field fits, Gibbs sampling, and the compare stage's minimum-atom
+distances."""

@@ -201,6 +201,13 @@ direct_information.sweeps = 0
 direct_information.syncs = 0
 
 
+def direct_information_device(J_ij, f_i, epsilon=1e-4, device=None):
+    """direct_information under the JAX package's device-variant name and
+    signature: the (L, L) matrix as a float64 numpy array."""
+    return direct_information(J_ij, f_i, epsilon=epsilon,
+                              device=device).cpu().numpy()
+
+
 def _warn_nan_di(di_pairs, ii, jj):
     """NaN DI pairs (e.g. exp-underflowed coupling rows) freeze as
     'converged' in the sweep loop (NaN > eps is False) and would slip into

@@ -1,10 +1,24 @@
 """
 Calculation helpers (the part of evcouplings_tpu/utils/calculations.py
-the port uses): column entropies of frequency matrices and the median
-absolute deviation. Small host-side numpy helpers.
+the port uses): entropies of distributions and of frequency matrices'
+columns, and the median absolute deviation. Small host-side numpy
+helpers.
 """
 
 import numpy as np
+
+
+def entropy(X, normalize=False):
+    """Shannon entropy (log2) of a distribution vector.
+
+    With ``normalize=True``, returns conservation in [0, 1]
+    (1 = fully conserved), computed as 1 - H / log2(len(X)).
+    """
+    X = np.asarray(X, dtype=float)
+    support = X[X > 0]
+    H = -np.sum(support * np.log2(support))
+
+    return 1 - (H / np.log2(len(X))) if normalize else H
 
 
 def entropy_rows(F, normalize=False):

@@ -16,8 +16,8 @@ trace there (utils/tracing.device_trace).
 The monomer table keeps all five stages. align, couplings, compare and
 mutate run the port's protocols (as in the JAX package, the mutate stage
 follows compare and reuses compare's outcfg when compare is skipped);
-fold raises NotImplementedError naming ROADMAP A19, as do the complex
-pipeline and the compare stage's sequence search (by_alignment: True).
+fold raises NotImplementedError naming ROADMAP A19b, and the
+protein_complex pipeline naming A19c.
 """
 
 import os
@@ -71,7 +71,7 @@ _MONOMER_STAGES = [
     ("couplings", cp.run, None),
     ("compare", cm.run, None),
     ("mutate", mt.run, None),
-    ("fold", _unported_stage("fold", "A19"), None),
+    ("fold", _unported_stage("fold", "A19b"), None),
 ]
 
 PIPELINES = {
@@ -91,7 +91,7 @@ def _resolve_pipeline(config):
     rejecting unknown pipeline names."""
     if config["pipeline"] == "protein_complex":
         raise NotImplementedError(
-            "the protein_complex pipeline is not ported yet (ROADMAP A19)")
+            "the protein_complex pipeline is not ported yet (ROADMAP A19c)")
     try:
         return PIPELINES[config["pipeline"]]
     except KeyError:

@@ -1,11 +1,12 @@
-"""File and directory helpers and the HTTP/FTP fetchers the stages use
-(the subset of evcouplings_tpu/utils/system.py that runs no external
-program; the port imports nothing of that package). The fetchers are
-called only where a local file is missing: the compare stage's SIFTS
-table, UniProt sequences and PDB structures."""
+"""System-level helpers (port of evcouplings_tpu/utils/system.py): the
+single subprocess chokepoint the external tools run through (run), file
+and directory utilities, and the HTTP/FTP fetchers. The fetchers are
+called only where a local file is missing: the target sequence, the
+compare stage's SIFTS table, UniProt sequences and PDB structures."""
 
 import os
 import shutil
+import subprocess
 import tempfile
 import urllib.error
 import urllib.request
@@ -13,6 +14,57 @@ import urllib.request
 
 class ResourceError(Exception):
     """Exception for missing resources (files, URLs, ...)"""
+
+
+class ExternalToolError(Exception):
+    """Exception for failing external calculations"""
+
+
+def run(cmd, stdin=None, check_returncode=True, working_dir=None,
+        shell=False, env=None):
+    """Run an external program (single subprocess chokepoint).
+
+    Parameters
+    ----------
+    cmd : str or list of str
+        Command (and optional arguments)
+    stdin : str, optional
+        Input to be sent to the program on stdin
+    check_returncode : bool, optional (default: True)
+        Verify the returncode is 0, raise ExternalToolError otherwise
+    working_dir : str, optional
+        Change to this directory before running the command
+    shell : bool, optional (default: False)
+        Invoke via shell
+    env : dict, optional
+        Environment for the command
+
+    Returns
+    -------
+    (int, str, str)
+        Return code, stdout, stderr
+    """
+    try:
+        # input="" when no stdin: the tool's stdin is an immediately-EOF
+        # pipe (inheriting the parent's stdin could hang interactive
+        # tools)
+        proc = subprocess.run(
+            cmd, input=stdin if stdin is not None else "",
+            capture_output=True, text=True,
+            cwd=working_dir, shell=shell, env=env,
+        )
+    except (OSError, ValueError) as e:
+        raise ExternalToolError(
+            "Call to external tool failed and did not return: {}".format(cmd)
+        ) from e
+
+    if check_returncode and proc.returncode != 0:
+        raise ExternalToolError(
+            "Call failed:\ncmd={}\nreturncode={}\nstdout={}\nstderr={}"
+            .format(cmd, proc.returncode, proc.stdout, proc.stderr)
+        )
+
+    return proc.returncode, proc.stdout, proc.stderr
 
 
 def valid_file(file_path):
@@ -46,6 +98,14 @@ def create_prefix_folders(prefix):
         os.makedirs(dirname, exist_ok=True)
 
 
+def makedirs(directories):
+    """Create one directory, or each directory in a list."""
+    if isinstance(directories, str):
+        directories = [directories]
+    for d in directories:
+        os.makedirs(d, exist_ok=True)
+
+
 def insert_dir(prefix, *dirs, rootname_subdir=True):
     """Create a path with subdirectories inserted before the prefix rootname.
 
@@ -70,6 +130,12 @@ def temp():
 def tempdir():
     """Create a temporary directory and return its path."""
     return tempfile.mkdtemp()
+
+
+def write_file(file_path, content):
+    """Write string content to a file."""
+    with open(file_path, "w") as handle:
+        handle.write(content)
 
 
 def get_urllib(url, output_path):

@@ -3,7 +3,7 @@ Job tracking (port of evcouplings_tpu/utils/tracker/__init__.py),
 selected via the management.tracker_type config: EStatus, the final and
 failure state sets, and get_result_tracker. No tracker type gives the
 NullTracker; the "sql" and "mongodb" backends are not ported yet
-(ROADMAP A19) and raise NotImplementedError.
+(ROADMAP A19d) and raise NotImplementedError.
 """
 
 from evcouplings_torch.utils.config import InvalidParameterError
@@ -40,7 +40,7 @@ def get_result_tracker(config):
         return NullTracker()
     if tracker_type in ("sql", "mongodb"):
         raise NotImplementedError(
-            "the {!r} job tracker is not ported yet (ROADMAP A19)".format(
+            "the {!r} job tracker is not ported yet (ROADMAP A19d)".format(
                 tracker_type))
     raise InvalidParameterError(
         "Not a valid job result tracker: '{}'. "

@@ -1,7 +1,7 @@
 """
 Result-tracker interface (port of evcouplings_tpu/utils/tracker/base.py):
 the no-op tracker. The storage-backed trackers (the JAX package's
-ResultTracker subclasses) are not ported yet (ROADMAP A19).
+ResultTracker subclasses) are not ported yet (ROADMAP A19d).
 """
 
 

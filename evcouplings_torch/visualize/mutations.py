@@ -138,16 +138,9 @@ def matrix_base_mpl(matrix, positions, substitutions, conservation=None,
     mutation-effect matrix, with wild-type markers and an optional
     conservation strip below (the JAX package's keyword surface:
     label_filter drops position labels, colorbar_indicate_bounds adds
-    <=/>= to the colorbar extremes; a secondary-structure cartoon,
-    secondary_structure and its style, is not ported yet)."""
+    <=/>= to the colorbar extremes, secondary_structure draws its
+    cartoon above the matrix)."""
     import matplotlib.pyplot as plt
-
-    if secondary_structure is not None:
-        # the cartoon is drawn by the contact-map plotting code, which
-        # is ported with the compare stage
-        raise NotImplementedError(
-            "secondary-structure cartoons are not ported yet (ROADMAP "
-            "A14, compare stage)")
 
     if colormap is None:
         colormap = plt.cm.RdBu_r
@@ -211,6 +204,38 @@ def matrix_base_mpl(matrix, positions, substitutions, conservation=None,
                     color=colormap_conservation(c),
                 ))
         ax.set_ylim(num_subs + 1.6, 0)
+
+    if secondary_structure is not None:
+        from evcouplings_torch.visualize.pairs import (
+            find_secondary_structure_segments,
+            secondary_structure_cartoon,
+        )
+
+        if secondary_structure_style is None:
+            secondary_structure_style = {
+                "width": 0.8,
+                "line_width": 2,
+                "strand_width_factor": 0.5,
+                "helix_turn_length": 2,
+                "min_sse_length": 2,
+            }
+        # cells are drawn at x in [i, i+1]: offset the SEGMENT
+        # coordinates to the cell centers (the cartoon draws segments
+        # at their raw coordinates)
+        start, end, sse = find_secondary_structure_segments(
+            secondary_structure, offset=0.5
+        )
+        # place the cartoon above the matrix (y axis runs downward),
+        # leaving clearance derived from the style's width so wide
+        # cartoons neither overlap row 0 nor get clipped
+        sse_width = float(secondary_structure_style.get("width", 0.8))
+        center = -(0.5 + sse_width / 2)
+        secondary_structure_cartoon(
+            sse, sequence_start=start, sequence_end=end,
+            center=center, ax=ax, **secondary_structure_style
+        )
+        bottom, _ = ax.get_ylim()
+        ax.set_ylim(bottom, center - sse_width / 2 - 0.5)
 
     if title is not None:
         ax.set_title(title)

@@ -225,3 +225,27 @@ def test_numeric_members_need_a_device(monkeypatch, demo_pair):
     fresh.set_weights(0.8, device="cpu")
     np.testing.assert_array_equal(fresh.num_cluster_members,
                                   demo_pair[1].num_cluster_members)
+
+
+def test_module_level_numerics_match_jax():
+    """frequencies, pair_frequencies, num_cluster_members and
+    identities_to_seq at the JAX package's import paths (module level of
+    align/alignment.py), on the CPU: counts exactly equal, frequencies to
+    atol 1e-6."""
+    rng = np.random.default_rng(5)
+    matrix = rng.integers(0, 21, size=(60, 12))
+    matrix[1::4] = matrix[0]
+    weights = 1.0 / (1.0 + rng.random(60))
+    counts = aln.num_cluster_members(matrix, 0.8, device="cpu")
+    assert isinstance(counts, np.ndarray)
+    np.testing.assert_array_equal(counts,
+                                  jax_aln.num_cluster_members(matrix, 0.8))
+    np.testing.assert_array_equal(
+        aln.identities_to_seq(matrix[3], matrix, device="cpu"),
+        jax_aln.identities_to_seq(matrix[3], matrix))
+    fi = aln.frequencies(matrix, weights, 21, device="cpu")
+    np.testing.assert_allclose(fi, jax_aln.frequencies(matrix, weights, 21),
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        aln.pair_frequencies(matrix, weights, 21, fi, device="cpu"),
+        jax_aln.pair_frequencies(matrix, weights, 21, fi), atol=1e-6)

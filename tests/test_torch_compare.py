@@ -275,12 +275,48 @@ def test_sifts_lookups_match_jax(sifts_files, with_sequences):
         got.by_pdb_id("5eee")
 
 
-def test_sifts_search_is_not_ported(sifts_files):
-    table, seqs = sifts_files
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-        sifts.SIFTS(table, seqs).by_alignment(sequence_id="TARGET_SEQ")
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-        sifts.find_homologs()
+def test_sifts_search_is_not_ported(tmp_path):
+    """The sequence search was ported after this test was written (ROADMAP
+    A19a): SIFTS.by_alignment through a fake jackhmmer against a SIFTS
+    sequence file (tests/search_fixtures.py) finds the small structure set,
+    one chain reached through a homolog with shifted numbering, and gives
+    the JAX package's hits and seqres -> target maps exactly; without a
+    sequence file it refuses in both packages."""
+    import search_fixtures as sf
+
+    _, rows = ss.small_structure_set()
+    header, seq = "TARGET_SEQ/11-28", ("ACDEFGHIKL" * 2)[:18]
+    rows, seqs, outputs = sf.small_sifts_search(str(tmp_path), rows,
+                                                header, seq)
+    table = str(tmp_path / "sifts.csv")
+    pd.DataFrame(rows).to_csv(table, index=False)
+    target = tmp_path / "target.fa"
+    target.write_text(">{}\n{}\n".format(header, seq))
+    kwargs = dict(sequence_id="TARGET_SEQ", sequence_file=str(target),
+                  first_index=11,
+                  jackhmmer=sf.fake_search(tmp_path / "jackhmmer",
+                                           {seqs: outputs["jackhmmer"]}))
+    for reduce_chains, min_overlap in ((False, 10), (True, 15)):
+        got = sifts.SIFTS(table, seqs).by_alignment(
+            min_overlap, reduce_chains, prefix=str(tmp_path / "torch" / "s"),
+            **kwargs)
+        want = jax_sifts.SIFTS(table, seqs).by_alignment(
+            min_overlap, reduce_chains, prefix=str(tmp_path / "jax" / "s"),
+            **kwargs)
+        _frames_equal(got.hits, want.hits)
+        assert got.mapping == want.mapping
+        assert set(got.hits.pdb_id) == (
+            {"1aaa", "2bbb"} if min_overlap == 15
+            else {"1aaa", "2bbb", "3ccc"})
+    # 3ccc's seqres 6 holds target residue 17 through the homolog (its
+    # residue 106): the homolog lacks target residue 16 (seqres 5)
+    got = sifts.SIFTS(table, seqs).by_alignment(
+        10, prefix=str(tmp_path / "torch" / "s"), **kwargs)
+    (k,) = got.hits.query("pdb_id == '3ccc'").mapping_index
+    assert got.mapping[k]["6"] == "17" and "5" not in got.mapping[k]
+    for module in (sifts, jax_sifts):
+        with pytest.raises(ValueError, match="sequence file"):
+            module.SIFTS(table).by_alignment(**kwargs)
 
 
 def test_fetch_uniprot_mapping_streams_results(monkeypatch):
@@ -532,6 +568,42 @@ def test_contact_map_draws_like_jax(structure_files):
         plt.close(fig)
     assert drawn[0] == drawn[1]
     assert drawn[0][0] >= 3
+
+
+@pytest.mark.parametrize("style", [None, {"width": 1.5, "line_width": 1,
+                                           "min_sse_length": 1}])
+def test_mutation_matrix_cartoon_draws_like_jax(style):
+    """plot_mutation_matrix(secondary_structure=...) draws the cartoon
+    above the matrix as the JAX package does: the same axis limits,
+    patches (and their extents), lines and collections."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from evcouplings_tpu.couplings.model import CouplingsModel as JaxModel
+    from evcouplings_tpu.visualize import mutations as jax_mutations
+    from evcouplings_torch.couplings.model import CouplingsModel
+    from evcouplings_torch.visualize import mutations
+
+    path = os.path.join(os.path.dirname(__file__), "data", "golden",
+                        "golden.model")
+    drawn = []
+    for module, model in ((mutations, CouplingsModel(path)),
+                          (jax_mutations, JaxModel(path))):
+        sse = ("CHHHHHCCEEEEC-HHHHHH" * 2)[:model.L]
+        fig = plt.figure()
+        ax = module.plot_mutation_matrix(
+            model, show_conservation=True, secondary_structure=sse,
+            secondary_structure_style=style)
+        drawn.append((ax.get_xlim(), ax.get_ylim(), len(ax.lines),
+                      len(ax.collections),
+                      [tuple(np.round(p.get_extents().bounds, 6))
+                       for p in ax.patches]))
+        plt.close(fig)
+    assert drawn[0] == drawn[1]
+    # the cartoon sits above row 0 (the y axis runs downward)
+    assert drawn[0][1][1] < 0 and len(drawn[0][4]) > 0
 
 
 def test_get_turns_transport_failures_into_resource_errors(monkeypatch,

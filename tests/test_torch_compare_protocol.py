@@ -7,8 +7,11 @@ Every file the outcfg names is compared
 (compare_fixtures.assert_same_compare_artifacts): CSVs equal except the
 distance columns (atol 1e-9 A), remapped and renumbered PDB files and
 the Pymol script byte for byte, figures for existence. Then the
-branches: no hits, structures that fail to load, and what is not ported
-(by_alignment, the complex protocol), which raises naming ROADMAP A19.
+branches: no hits, structures that fail to load; structures found by
+sequence search (by_alignment, jackhmmer and hmmbuild + hmmsearch, fake
+binaries from tests/search_fixtures.py), whose hit tables and per-hit
+mapping CSVs must equal the JAX package's too; and the complex protocol,
+which is not ported and raises naming ROADMAP A19c.
 """
 
 import os
@@ -19,9 +22,15 @@ import pytest
 import torch
 
 import compare_fixtures as ss
+import search_fixtures as sf
 from evcouplings_tpu.compare import protocol as jax_protocol
+from evcouplings_tpu.compare import sifts as jax_sifts
+from evcouplings_tpu.utils.config import (
+    InvalidParameterError as JaxInvalidParameterError,
+)
 from evcouplings_torch.compare import bcif
-from evcouplings_torch.compare import protocol
+from evcouplings_torch.compare import protocol, sifts
+from evcouplings_torch.utils.config import InvalidParameterError
 from test_compare_protocol import compare_setup  # noqa: F401 (fixture)
 
 # a distance of 0 from the port may be this far from 0 in the JAX
@@ -205,11 +214,109 @@ def test_every_structure_missing(seeded_inputs, tmp_path, monkeypatch):
     assert got["ec_compared_all_file"] is None
 
 
+@pytest.fixture(scope="module")
+def search_inputs(seeded_inputs, tmp_path_factory):
+    """The seeded structures found by sequence search: a SIFTS table with
+    3ccc reassigned to a homolog numbered +90 that lacks target residue 16
+    (search_fixtures.SMALL_HOMOLOG), the SIFTS sequence file, fake
+    jackhmmer, hmmbuild and hmmsearch returning the prepared hits, and a
+    raw focus alignment of the target for hmmbuild."""
+    d = tmp_path_factory.mktemp("search")
+    _, rows = ss.small_structure_set()
+    header, seq = "TARGET_SEQ/11-28", ("ACDEFGHIKL" * 2)[:18]
+    rows, seqs, outputs = sf.small_sifts_search(str(d), rows, header, seq)
+    pd.DataFrame(rows).to_csv(d / "sifts_search.csv", index=False)
+    focus = d / "raw_focus.fasta"
+    focus.write_text(">{}\n{}\n>hom1/1-18\n{}\n".format(header, seq,
+                                                        seq[::-1]))
+    return dict(
+        seeded_inputs, sifts_table=str(d / "sifts_search.csv"),
+        sifts_sequence_db=seqs, raw_focus_alignment_file=str(focus),
+        jackhmmer=sf.fake_search(d / "jackhmmer",
+                                 {seqs: outputs["jackhmmer"]}),
+        hmmsearch=sf.fake_search(d / "hmmsearch",
+                                 {seqs: outputs["hmmsearch"]}),
+        hmmbuild=sf.fake_hmmbuild(d / "hmmbuild"))
+
+
+SEARCH_KEYS = ("sifts_sequence_db", "raw_focus_alignment_file", "jackhmmer",
+               "hmmsearch", "hmmbuild")
+
+
+def _search_kwargs(inputs, method, **overrides):
+    """compare `standard` with by_alignment: the search's query is the
+    target sequence file, numbered from 11."""
+    return _seeded_kwargs(
+        inputs, by_alignment=True, pdb_alignment_method=method,
+        alignment_min_overlap=10, sequence_file=inputs["target_seq_file"],
+        first_index=11, compare_multimer=True,
+        **{k: inputs[k] for k in SEARCH_KEYS}, **overrides)
+
+
+@pytest.mark.parametrize("method", ["jackhmmer", "hmmsearch"])
+def test_by_alignment_matches_jax(search_inputs, tmp_path, method):
+    out = run_both(tmp_path, _search_kwargs(search_inputs, method))
+    (got_root, got), (want_root, want) = out["torch"], out["jax"]
+    assert assert_same_as_jax(got, want, got_root, want_root) >= 12
+    hits = pd.read_csv(got["pdb_structure_hits_file"])
+    assert list(hits.pdb_id) == ["1aaa", "2bbb", "2bbb", "3ccc"]
+    assert list(hits.uniprot_ac) == ["TARGET_SEQ"] * 3 + ["HOM_ONE"]
+    # one mapping CSV per hit, as the JAX package writes them
+    aux = os.path.join(got_root, "aux")
+    mappings = sorted(f for f in os.listdir(aux)
+                      if f.startswith("cmp_mapping"))
+    assert len(mappings) == 4
+    for name in mappings:
+        ss.assert_same_compare_file(os.path.join(aux, name),
+                                    os.path.join(want_root, "aux", name))
+    top = pd.read_csv(got["ec_compared_longrange_file"]).iloc[:3]
+    assert set(zip(top.i, top.j)) == {(13, 20), (15, 26), (17, 23)}
+    assert (top.dist <= 5).all() and (top.precision == 1.0).all()
+
+
+@pytest.mark.parametrize("method", ["jackhmmer", "hmmsearch"])
+def test_find_homologs_matches_jax(search_inputs, tmp_path, method):
+    kwargs = dict(sequence_id="TARGET_SEQ", first_index=11,
+                  sequence_file=search_inputs["target_seq_file"],
+                  sequence_database=search_inputs["sifts_sequence_db"],
+                  **{k: search_inputs[k] for k in SEARCH_KEYS[1:]})
+    got_ali, got = sifts.find_homologs(
+        method, prefix=str(tmp_path / "torch" / "fh"), **kwargs)
+    want_ali, want = jax_sifts.find_homologs(
+        method, prefix=str(tmp_path / "jax" / "fh"), **kwargs)
+    pd.testing.assert_frame_equal(got, want)
+    assert list(got.alignment_id) == ["sp|TARGET_SEQ|TGT_SEQ/11-28",
+                                      "tr|HOM_ONE|HOM1_XENLA/101-117"]
+    assert list(got_ali.ids) == list(want_ali.ids)
+    assert (got_ali.matrix == want_ali.matrix).all()
+
+
+def test_invalid_search_method_raises(search_inputs, tmp_path):
+    for module, error in ((protocol, InvalidParameterError),
+                          (jax_protocol, JaxInvalidParameterError)):
+        with pytest.raises(error, match="pdb search method"):
+            module.run(**_search_kwargs(search_inputs, "blast")(
+                str(tmp_path)), device="cpu")
+    for module, error in ((sifts, InvalidParameterError),
+                          (jax_sifts, JaxInvalidParameterError)):
+        with pytest.raises(error, match="pdb_alignment_method"):
+            module.find_homologs("blast", prefix=str(tmp_path / "x"))
+
+
 @pytest.mark.parametrize("edit", [{"by_alignment": True},
                                   {"protocol": "complex"}])
-def test_unported_parts_raise_naming_a19(seeded_inputs, tmp_path, edit):
-    kwargs = _seeded_kwargs(seeded_inputs, **edit)(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
+def test_unported_parts_raise_naming_a19(search_inputs, tmp_path, edit):
+    """ROADMAP A19 was split: the sequence search (by_alignment, A19a) is
+    ported and finds the seeded structures; the complex protocol (A19c)
+    still raises naming its item."""
+    if "by_alignment" in edit:
+        out = protocol.run(**_search_kwargs(search_inputs, "jackhmmer")(
+            str(tmp_path)), device="cpu")
+        hits = pd.read_csv(out["pdb_structure_hits_file"])
+        assert set(hits.pdb_id) == {"1aaa", "2bbb", "3ccc"}
+        return
+    kwargs = _seeded_kwargs(search_inputs, **edit)(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="ROADMAP A19c"):
         protocol.run(**kwargs, device="cpu")
 
 

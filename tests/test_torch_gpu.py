@@ -229,3 +229,27 @@ def test_min_atom_distances_on_the_card_equal_the_host(cuda, n_i, n_j,
     host = min_atom_distances(*args, block_rows=block, device="cpu")
     assert np.abs(card - host).max() <= 1e-9
     assert np.array_equal(card == 0.0, host == 0.0)
+
+
+def test_gibbs_sampler_on_the_card(cuda):
+    """The sampler on the card (no hand-written kernel: cuBLAS products):
+    the enumerated Boltzmann distribution (TV < 0.03), the same generator
+    seed giving the same codes twice, and at beta = 1e6 the host path's
+    final codes code for code (every logit gap along the chain > 1e-3)."""
+    import sampling_fixtures as sfx
+    from evcouplings_torch.ops.sampling import gibbs_sample
+
+    J, h = sfx.tiny_model(0, 3, 3)
+    codes, _ = gibbs_sample(J, h, 20000, 60, seed=1, device=cuda)
+    assert sfx.total_variation(codes, sfx.boltzmann(J, h), 3) < 0.03
+    again, _ = gibbs_sample(J, h, 20000, 60, seed=1, device=cuda)
+    np.testing.assert_array_equal(codes, again)
+
+    J, h = sfx.tiny_model(21, 7, 5, h_scale=1.0, J_scale=0.5)
+    init = np.random.default_rng(22).integers(0, 5, (256, 7))
+    want, gap = sfx.argmax_chain(J, h, init, 4)
+    assert gap > 1e-3, gap
+    for device in (cuda, "cpu"):
+        got, _ = gibbs_sample(J, h, 256, 4, init_codes=init, beta=1e6,
+                              seed=5, device=device)
+        np.testing.assert_array_equal(got, want)

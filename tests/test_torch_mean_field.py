@@ -118,6 +118,24 @@ def test_direct_information_matches_jax(check_every, monkeypatch):
         np.testing.assert_allclose(_np(g), w, rtol=1e-10)
 
 
+def test_direct_information_device_matches_jax():
+    """The JAX package's device-variant name and signature: a float64
+    numpy (L, L) matrix. Its JAX twin iterates in float64 under x64 here,
+    so the two agree to 1e-10."""
+    f_i, f_ij = _freqs(L=6, seed=4)
+    L, q = f_i.shape
+    C = jops.compute_covariance_matrix(f_i, f_ij)
+    J = jops.reshape_invC_to_4d(-np.linalg.inv(C), L, q)
+    got = tops.direct_information_device(J, f_i, device="cpu")
+    assert isinstance(got, np.ndarray) and got.dtype == np.float64
+    np.testing.assert_allclose(got, jops.direct_information_device(J, f_i),
+                               rtol=1e-10, atol=1e-14)
+    np.testing.assert_allclose(
+        tops.direct_information_device(J, f_i, epsilon=1e-2, device="cpu"),
+        jops.direct_information_device(J, f_i, epsilon=1e-2),
+        rtol=1e-10, atol=1e-14)
+
+
 def test_direct_information_flags_nan_pairs():
     f_i, _ = _freqs(L=3)
     J = np.zeros((3, 3, 4, 4))

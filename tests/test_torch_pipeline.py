@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import compare_fixtures as ss
+import search_fixtures as sf
 from evcouplings_tpu.utils import pipeline as jax_pipeline
 from evcouplings_torch.compare import bcif
 from evcouplings_torch.utils import pipeline
@@ -163,6 +164,50 @@ def test_delete_outputs(jobs, tmp_path):
     assert pipeline.delete_outputs({"management": None}, outcfg) is outcfg
 
 
+def _search_config(tmp_path, stages=("align", "couplings", "compare",
+                                      "mutate"), device="cpu"):
+    """The sample monomer config's align section (protocol standard,
+    config/sample_config_monomer.txt) with seqid_filter set, and its
+    compare section's by_alignment: True, on fake jackhmmer and hhfilter
+    (tests/search_fixtures.py): the uniref90 search returns the synthetic
+    focus alignment, the SIFTS sequence-file search the seeded structures'
+    chains (3ccc through a homolog), and hhfilter drops every 7th row."""
+    config = _config(tmp_path, stages=stages, device=device)
+    _, rows = ss.small_structure_set()
+    files = sf.search_job_files(str(tmp_path / "search"),
+                                config["align"]["input_alignment"], rows)
+    config["global"].update(sequence_file=files["sequence_file"],
+                            region=None, cpu=None)
+    config["tools"] = {"jackhmmer": files["jackhmmer"],
+                       "hhfilter": files["hhfilter"], "hmmbuild": None,
+                       "hmmsearch": None, "plmc": None}
+    config["databases"] = {
+        "uniref90": files["uniref90"],
+        "sequence_download_url": "http://invalid.example/{}.fasta",
+        "sifts_mapping_table": files["sifts_mapping_table"],
+        "sifts_sequence_db": files["sifts_sequence_db"]}
+    config["align"] = {
+        "protocol": "standard", "input_alignment": None, "first_index": 11,
+        "iterations": 5, "database": "uniref90", "use_bitscores": True,
+        "domain_threshold": 0.5, "sequence_threshold": 0.5,
+        "checkpoints_hmm": False, "checkpoints_ali": False, "nobias": False,
+        "reuse_alignment": True, "seqid_filter": 95,
+        "minimum_sequence_coverage": 50, "minimum_column_coverage": 70,
+        "compute_num_effective_seqs": False, "extract_annotation": True}
+    compare = dict(config["compare"], by_alignment=True,
+                   alignment_min_overlap=10)
+    for key in ("sifts_mapping_table", "sifts_sequence_db"):
+        compare.pop(key)
+    config["compare"] = compare
+    return config, files
+
+
+# the parts of ROADMAP A19 that are ported (A19a), as edits of _config
+SEARCH_EDITS = {("compare", "by_alignment", True),
+                ("align", "protocol", "standard"),
+                ("align", "seqid_filter", 0.9)}
+
+
 @pytest.mark.parametrize("stages,edit,item", [
     (["align", "couplings", "compare"], ("compare", "by_alignment", True),
      "A19"),
@@ -172,6 +217,25 @@ def test_delete_outputs(jobs, tmp_path):
     (["align"], ("management", "tracker_type", "sql"), "A19"),
 ])
 def test_unported_parts_name_their_item(tmp_path, stages, edit, item):
+    """ROADMAP A19 was split. The sequence search, the identity filter
+    and compare by_alignment (A19a) are ported: with fake binaries the job
+    runs, and its outcfg names their outputs. The protein_complex pipeline
+    (A19c) and the sql tracker (A19d) still raise naming their item."""
+    if edit in SEARCH_EDITS:
+        config, files = _search_config(tmp_path, stages=stages)
+        section, key, value = edit
+        config[section] = dict(config[section], **{key: value})
+        state = pipeline.execute_wrapped(**config)
+        assert state["focus_sequence"] == "TARGET_SEQ/11-28"
+        assert os.path.isfile(state["raw_alignment_file"])
+        assert os.path.isfile(state["hittable_file"])
+        # hhfilter's drops, then the coverage filter
+        assert state["num_sequences"] <= 150 - len(files["dropped"])
+        if key == "by_alignment":
+            hits = pd.read_csv(state["pdb_structure_hits_file"])
+            assert set(hits.pdb_id) == {"1aaa", "2bbb", "3ccc"}
+            assert os.path.isfile(state["ec_compared_longrange_file"])
+        return
     config = _config(tmp_path, stages=stages)
     if edit is not None:
         section, key, value = edit
@@ -341,3 +405,71 @@ def test_jax_compare_stage_on_the_port_job_is_equal(jobs4):
         _compare_outcfg(config), _compare_outcfg(again), _root(config),
         _root(again), zero_atol=ZERO_ATOL)
     assert compared >= 14
+
+
+def test_sample_config_search_job_from_the_command_line(tmp_path):
+    """The sample monomer config's align `standard` (seqid_filter set) and
+    compare by_alignment on fake binaries, [align, couplings, compare,
+    mutate], through `python -m evcouplings_torch.utils.pipeline` on the
+    CPU; the same config through the JAX package's pipeline. Equal: the
+    final outcfg's keys, the align stage's artifacts (bytes; the
+    statistics CSV without its prefix column), and the compare artifacts
+    that do not depend on the fitted ECs (hits, distance maps, remapped
+    and renumbered PDB files; distances within 1e-9 A)."""
+    import subprocess
+    import sys
+
+    from evcouplings_torch.utils.config import write_config_file
+
+    configs = {}
+    for tag in ("torch", "jax"):
+        (tmp_path / tag).mkdir()
+        configs[tag], _ = _search_config(tmp_path / tag)
+    cfg_file = str(tmp_path / "job.yml")
+    write_config_file(cfg_file, configs["torch"])
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "evcouplings_torch.utils.pipeline", cfg_file],
+        cwd=str(tmp_path), capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1"))
+    assert out.returncode == 0, out.stderr[-3000:]
+    prefix = configs["torch"]["global"]["prefix"]
+    state = read_config_file(prefix + "_final.outcfg")
+    want = jax_pipeline.execute_wrapped(**configs["jax"])
+    assert set(state) == set(want)
+    assert list(pd.read_csv(state["runtime_file"]).scope) == COMPARE_STAGES
+    for key in ("alignment_file", "raw_focus_alignment_file",
+                "identities_file", "frequencies_file", "annotation_file",
+                "target_sequence_file", "sequence_file"):
+        with open(state[key]) as a, open(want[key]) as b:
+            assert a.read() == b.read(), key
+    pd.testing.assert_frame_equal(
+        pd.read_csv(state["statistics_file"]).drop(columns="prefix"),
+        pd.read_csv(want["statistics_file"]).drop(columns="prefix"),
+        check_exact=True)
+    for name in ("_filtered.a3m", "_raw_focus_filtered.fasta"):
+        got = insert_dir(prefix, "align") + name
+        with open(got) as a, open(insert_dir(configs["jax"]["global"][
+                "prefix"], "align") + name) as b:
+            assert a.read() == b.read(), name
+    roots = [_root(configs[tag]) for tag in ("torch", "jax")]
+    for key in ("pdb_structure_hits_file",
+                "pdb_structure_hits_unfiltered_file",
+                "distmap_monomer_residues_file", "remapped_pdb_files",
+                "renumbered_pdb_files", "distmap_monomer",
+                "distmap_multimer"):
+        got, want_files = state[key], want[key]
+        if key.startswith("distmap_") and not key.endswith("_file"):
+            pairs = [(got + ext, want_files + ext) for ext in (".csv", ".npy")]
+        elif isinstance(got, dict):
+            assert {os.path.relpath(f, roots[0]): v for f, v in got.items()} \
+                == {os.path.relpath(f, roots[1]): v
+                    for f, v in want_files.items()}
+            pairs = list(zip(sorted(got), sorted(want_files)))
+        else:
+            pairs = [(got, want_files)]
+        for g, w in pairs:
+            ss.assert_same_compare_file(g, w, zero_atol=ZERO_ATOL)
+    hits = pd.read_csv(state["pdb_structure_hits_file"])
+    assert set(hits.pdb_id) == {"1aaa", "2bbb", "3ccc"}
+    assert os.path.isfile(state["mutation_matrix_file"])

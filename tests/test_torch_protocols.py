@@ -30,6 +30,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
+import search_fixtures as sf
 from evcouplings_tpu.align import protocol as jax_align
 from evcouplings_tpu.couplings import protocol as jax_couplings
 from evcouplings_tpu.couplings.model import CouplingsModel as JaxModel
@@ -38,8 +39,10 @@ from evcouplings_torch.align import protocol as align
 from evcouplings_torch.couplings import protocol as couplings
 from evcouplings_torch.couplings.model import CouplingsModel
 from evcouplings_torch.mutate import protocol as mutate
+from evcouplings_torch.align.alignment import Alignment
 from test_golden_regression import ATOL, RTOL, assert_exact_rank_order
 from test_protocols import ALIGN_KWARGS, COUPLINGS_KWARGS, write_synthetic_a2m
+from test_torch_align_search import assert_same_outputs
 
 # 20 iterations: over 40 the fit amplifies the one-ulp differences
 # between the port's and XLA's float32 arithmetic past the gate (PR 1,
@@ -255,26 +258,106 @@ def test_mutate_on_one_model_matches_jax(chains):
                                   atol=0)
 
 
+def _search_inputs(tmp):
+    """The synthetic focus alignment as a fake jackhmmer's Stockholm
+    result (query first, UniProt-style annotation on every 10th row), an
+    input alignment for hmmbuild and its fake hmmsearch hits, and the
+    full target sequence numbered from 11."""
+    a2m = str(tmp / "input.a2m")
+    write_synthetic_a2m(a2m)
+    sto, hits = sf.as_jackhmmer_result(sf.read_rows(a2m),
+                                       annotate_every=10)
+    db = tmp / "uniref.fa"
+    db.write_text(">x\nACD\n")
+    jack = sf.write_outputs(str(tmp), "jack", sto, hits, "TARGET_SEQ", 18)
+    target = Alignment.from_path(a2m)
+    seq = "".join(target[0])
+    (tmp / "target.fa").write_text(">TARGET_SEQ\n" + seq + "\n")
+    hmm_rows = [(target.ids[k], "".join(target[k])) for k in range(1, 40)]
+    hmm = sf.write_outputs(str(tmp), "hmm",
+                           sf.stockholm(hmm_rows, rf="x" * len(seq)),
+                           hits[:39], "TARGET_SEQ", 18)
+    return {
+        "seq_file": str(tmp / "target.fa"), "db": str(db), "a2m": a2m,
+        "jackhmmer": sf.fake_search(tmp / "jackhmmer", {str(db): jack}),
+        "hmmsearch": sf.fake_search(tmp / "hmmsearch", {str(db): hmm}),
+        "hmmbuild": sf.fake_hmmbuild(tmp / "hmmbuild"),
+    }
+
+
+def _search_kwargs(inputs, name, root):
+    common = dict(
+        prefix=os.path.join(root, "search", "job"), sequence_id="TARGET_SEQ",
+        first_index=11, use_bitscores=True, domain_threshold=0.5,
+        sequence_threshold=0.5, database="uniref90", uniref90=inputs["db"],
+        cpu=None, nobias=False, reuse_alignment=False)
+    if name == "standard":
+        return {**common, **ALIGN_KWARGS, **{
+            "sequence_file": inputs["seq_file"], "region": None,
+            "sequence_download_url": "http://invalid.example/{}",
+            "iterations": 5, "checkpoints_hmm": False,
+            "checkpoints_ali": False, "jackhmmer": inputs["jackhmmer"],
+            "extract_annotation": True, "first_index": 11}}
+    return dict(common, alignment_file=inputs["a2m"], first_index=None,
+                hmmbuild=inputs["hmmbuild"], hmmsearch=inputs["hmmsearch"])
+
+
+def _search_protocol(name):
+    """align `name` through both packages on the fake binaries: the
+    outcfgs equal apart from their roots, every file they name equal."""
+    def run(tmp):
+        inputs = _search_inputs(tmp)
+        out = {}
+        for tag, (module, _, _, extra) in SIDES.items():
+            root = str(tmp / tag)
+            out[tag] = (root, module.run(
+                protocol=name, **_search_kwargs(inputs, name, root),
+                **extra))
+        (got_root, got), (want_root, want) = out["torch"], out["jax"]
+        assert assert_same_outputs(got, want, got_root, want_root) >= 5
+        return got
+    run.ported = True
+    return run
+
+
 @pytest.mark.parametrize("run,item", [
-    (lambda tmp: align.run(protocol="standard", prefix=str(tmp / "a")),
-     "A19"),
-    (lambda tmp: align.run(protocol="hmmbuild_and_search",
-                           prefix=str(tmp / "a")), "A19"),
+    (_search_protocol("standard"), "A19"),
+    (_search_protocol("hmmbuild_and_search"), "A19"),
     (lambda tmp: couplings.run(protocol="complex"), "A19"),
     (lambda tmp: mutate.run(protocol="complex"), "A19"),
 ])
 def test_unported_protocols_name_their_item(tmp_path, run, item):
+    """ROADMAP A19 was split: the search protocols (A19a) are ported and
+    run on fake binaries equal to the JAX package's; the complex
+    protocols (A19c) still raise naming their item."""
+    if getattr(run, "ported", False):
+        got = run(tmp_path)
+        assert got["focus_mode"] is True
+        assert got["segments"][0][3:5] == [11, 28]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP " + item):
         run(tmp_path)
 
 
 def test_external_identity_filter_raises(chains, tmp_path):
+    """The identity filter was ported after this test was written (ROADMAP
+    A19a): `existing` with seqid_filter runs hhfilter (a fake that drops
+    every 7th row) in both packages, with equal artifacts."""
     a2m = os.path.join(os.path.dirname(os.path.dirname(
         chains["torch"]["align"]["alignment_file"])), "..", "input.a2m")
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-        align.run(protocol="existing", prefix=str(tmp_path / "x"),
-                  input_alignment=a2m, device="cpu",
-                  **{**ALIGN_KWARGS, "seqid_filter": 0.9})
+    ids = list(Alignment.from_path(a2m).ids)
+    drop = [ids[k].split()[0] for k in range(7, len(ids), 7)]
+    hhfilter = sf.fake_hhfilter(tmp_path / "hhfilter", drop)
+    out = {}
+    for tag, (module, _, _, extra) in SIDES.items():
+        root = str(tmp_path / tag)
+        out[tag] = (root, module.run(
+            protocol="existing", prefix=os.path.join(root, "x"),
+            input_alignment=a2m, **extra,
+            **{**ALIGN_KWARGS, "seqid_filter": 0.9, "hhfilter": hhfilter}))
+    (got_root, got), (want_root, want) = out["torch"], out["jax"]
+    assert assert_same_outputs(got, want, got_root, want_root) >= 6
+    assert got["num_sequences"] < chains["torch"]["align"]["num_sequences"]
 
 
 @pytest.mark.parametrize("knobs,error,match", [

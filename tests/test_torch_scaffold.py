@@ -17,8 +17,13 @@ GOLDEN = os.path.join(REPO, "tests", "data", "golden")
 
 PORT_MODULES = [
     "evcouplings_torch",
+    "evcouplings_torch.align",
     "evcouplings_torch.align.alignment",
+    "evcouplings_torch.align.ena",
+    "evcouplings_torch.align.ids",
+    "evcouplings_torch.align.pfam",
     "evcouplings_torch.align.protocol",
+    "evcouplings_torch.align.tools",
     "evcouplings_torch.compare",
     "evcouplings_torch.compare.bcif",
     "evcouplings_torch.compare.distances",
@@ -52,6 +57,7 @@ PORT_MODULES = [
     "evcouplings_torch.ops.plm",
     "evcouplings_torch.ops.plm_sites",
     "evcouplings_torch.ops.plm_update",
+    "evcouplings_torch.ops.sampling",
     "evcouplings_torch.ops.scores",
     "evcouplings_torch.ops.weights",
     "evcouplings_torch.utils.calculations",
@@ -70,6 +76,81 @@ PORT_MODULES = [
     "evcouplings_torch.visualize.parameters",
     "evcouplings_torch.visualize.pymol",
 ]
+
+
+# public names of a JAX twin that the port does not have yet, each with
+# the ROADMAP item that brings it
+QUEUED_NAMES = {
+    "evcouplings_torch.couplings.pairs": {           # A19d
+        "logreg_classifier_from_dict", "logreg_classifier_to_dict"},
+    "evcouplings_torch.couplings.protocol": {        # A19c
+        "SCORING_MODELS", "complex_probability"},
+    "evcouplings_torch.ops.mean_field": {            # A18
+        "invert_covariance_sharded"},
+    "evcouplings_torch.utils.calculations": {"dihedral_angle"},   # A19b
+    "evcouplings_torch.utils.helpers": {
+        "render_template",                           # A19b
+        "PersistentDict", "Progressbar", "retry"},   # A19d
+    "evcouplings_torch.utils.tracker": {             # A19d
+        "TRACKER_MAX_NUM_RETRIES", "TRACKER_PASSWORD_KEY",
+        "TRACKER_RETRY_WAIT", "TRACKER_USERNAME_KEY", "environ",
+        "ResultTracker"},
+    "evcouplings_torch.utils.tracker.base": {        # A19d
+        "DEFAULT_FILE_COLLECTION", "DEFAULT_RESULT_COLLECTION",
+        "ResultTracker"},
+    "evcouplings_torch.visualize": {"pymol_secondary_structure"},  # A19b
+    "evcouplings_torch.visualize.pymol": {"pymol_secondary_structure"},
+}
+# public names the port has beside its twin's: device selection, the
+# float64 host inversion and the distance blocks' size, the snapshot
+# codec of checkpoint/resume, counters read by chip_smoke.py, dtypes
+PORT_ADDED_NAMES = {
+    "evcouplings_torch": {"resolve_device"},
+    "evcouplings_torch.ops.distances": {"block_bytes"},
+    "evcouplings_torch.ops.mean_field": {"F64", "invert_covariance"},
+    "evcouplings_torch.ops.plm": {
+        "ADAM_B1", "ADAM_B2", "ADAM_EPS", "fista_counts",
+        "restore_snapshot", "snapshot_arrays", "write_snapshot"},
+    "evcouplings_torch.ops.plm_sites": {"F32"},
+}
+
+
+def _public_names(module):
+    """A module's public names: no _private names, no modules, and
+    functions and classes only in the module that defines them (or, for a
+    package, in one of its submodules): each package imports helpers of
+    its own (torch's, jax's) that are not part of its surface."""
+    import inspect
+
+    own = module.__name__.replace("evcouplings_tpu", "evcouplings_torch")
+    names = set()
+    for name, value in vars(module).items():
+        if name.startswith("_") or inspect.ismodule(value):
+            continue
+        if inspect.isfunction(value) or inspect.isclass(value):
+            home = value.__module__.replace("evcouplings_tpu",
+                                            "evcouplings_torch")
+            if home != own and not (hasattr(module, "__path__")
+                                    and home.startswith(own + ".")):
+                continue
+        names.add(name)
+    return names
+
+
+@pytest.mark.parametrize("name", [
+    m for m in PORT_MODULES if not m.startswith(("evcouplings_torch.kernels",
+                                                 "evcouplings_torch.convert"))])
+def test_public_names_match_the_jax_twin(name):
+    """Each ported module's public names are its JAX twin's, apart from
+    the names still queued in ROADMAP.md (QUEUED_NAMES) and the port's
+    own additions (PORT_ADDED_NAMES)."""
+    import importlib
+
+    port = _public_names(importlib.import_module(name))
+    twin = _public_names(importlib.import_module(
+        name.replace("evcouplings_torch", "evcouplings_tpu")))
+    assert twin - port == QUEUED_NAMES.get(name, set())
+    assert port - twin == PORT_ADDED_NAMES.get(name, set())
 
 
 def test_import_leaves_jax_out():
