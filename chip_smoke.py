@@ -24,7 +24,13 @@ mutate against ten seeded structures in a local SIFTS table (8c). Phase
 times its sweep at full width (9a), and drives the sample config's search
 route (align `standard` with the hhfilter identity filter, compare
 `by_alignment`) on fake search binaries: a small job card against host
-(9b), then the full-width job (9c). Every
+(9b), then the full-width job (9c). Phase 10 probes for CNS, PSIPRED,
+maxcluster, jinja2 and Python.h, holds the port's C alignment readers
+against its Python readers at full width and times both (10a), and runs
+the monomer pipeline's five stages (align, couplings, compare, mutate,
+fold; the fold stage on fake CNS, PSIPRED and maxcluster binaries): a
+small job card against host (10b), then the full-width job with the
+sample config's fold settings (10c). Every
 phase raises on a mismatch; nothing is caught, except that a machine
 without matplotlib cannot draw the mutate stage's plots, which the
 script then names before its last lines (the compare stage is then
@@ -1377,14 +1383,331 @@ def phase9c(tmp, full, couplings_kw, not_produced):
     assert (top8.precision == 1.0).all() and (top8.dist <= 5).all(), top8
     log("phase 9c full-width search job [{}] N={} ({} rows searched, "
         "N_eff {:.1f}) L={}: {:.2f} s; stages {}; mutate {:.2f} s; the "
-        "{:.1f} MB Stockholm result read by the port's Python reader "
-        "{:.2f} s ({} x {}); fake search files written in {:.2f} s; {} "
+        "{:.1f} MB Stockholm result read by Alignment.from_path (the C "
+        "reader) {:.2f} s ({} x {}); fake search files written in {:.2f} "
+        "s; {} "
         "structure hits by sequence search; top 8 long-range compared ECs "
         "= the 8 planted pairs, precision 1.0; launches {}".format(
             ", ".join(stages), state["num_sequences"], raw.N,
             state["effective_sequences"], state["num_sites"], secs,
             json.dumps(runtime_seconds(state)), mut_secs, mb, read_secs,
             raw.N, raw.L, prep_secs, len(hits), json.dumps(counts)))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the native alignment readers (A20) and the fold stage (A19b).
+# The readers are host C (csrc/fasta_io.c, stockholm_io.c, built with cc in
+# phase 1); the fold stage is host code that runs CNS, PSIPRED and
+# maxcluster, which the machine does not have: fake binaries keep their
+# command lines (tests/fold_fixtures.py). The five-stage job's device work
+# is its couplings stage (K1, K4) and compare's distances.
+# ---------------------------------------------------------------------------
+
+FOLD_TOOLS = ("cns", "runpsipred", "maxcluster")
+# inside the checkout (build/ is git-ignored), as phase 9's fakes
+FOLD_DIR = os.path.join(HERE, "build", "chip_smoke_fold")
+FIVE_STAGES = ["align", "couplings", "compare", "mutate", "fold"]
+
+
+def phase10_probe():
+    """Recorded, gating nothing: the folding binaries on PATH, jinja2
+    (the fold stage renders its CNS scripts with it) and Python.h (the JAX
+    package's CPython loaders would need it; the port's readers do not)."""
+    import importlib.util
+    import shutil
+    import sysconfig
+
+    found = {tool: shutil.which(tool) for tool in FOLD_TOOLS}
+    found["jinja2"] = importlib.util.find_spec("jinja2") is not None
+    include = sysconfig.get_paths().get("include") or ""
+    found["Python.h"] = os.path.isfile(os.path.join(include, "Python.h"))
+    # what a fake CNS call and a spawned fold worker cost before any work:
+    # an interpreter start, and a fresh import of the fold stage
+    starts = {}
+    for what, cmd in (
+            ("python3 -c pass", ["python3", "-c", "pass"]),
+            ("import evcouplings_torch.fold.cns",
+             [sys.executable, "-c", "import evcouplings_torch.fold.cns"])):
+        t = time.perf_counter()
+        subprocess.run(cmd, check=True, cwd=HERE,
+                       env=dict(os.environ, PYTHONPATH=HERE))
+        starts[what] = time.perf_counter() - t
+    log("phase 10 probe (shutil.which, find_spec, sysconfig include {}): "
+        "{}; a fresh process (host clock, s): {}".format(
+            include, json.dumps(found), json.dumps(starts)))
+    return found
+
+
+def _plain(annotation):
+    if isinstance(annotation, dict):
+        return {k: _plain(v) for k, v in annotation.items()}
+    return annotation
+
+
+def phase10a_readers(tmp, full, align_kw):
+    """The port's C readers against its Python readers on phase 9c's
+    16385 x 160 Stockholm result and the full-width a2m: ids, matrix and
+    annotation equal, and each reader's seconds (Alignment.from_path on
+    the C route, Alignment.from_file on the Python reader; C, Python,
+    Python, C). Then the align stage of a 6b-style job alone, on the C
+    route and with the C readers patched out (C, Python, Python, C).
+    Returns the align jobs' launches."""
+    from evcouplings_torch.align import alignment as al
+
+    sto = os.path.join(SEARCH_DIR, "full", "uniref.sto")
+    for path, fmt, reader in ((sto, "stockholm", "read_stockholm"),
+                              (full, "fasta", "read_fasta")):
+        python_reads = []
+        original = getattr(al, reader)
+
+        def counted_reader(*args, **kwargs):
+            python_reads.append(1)
+            return original(*args, **kwargs)
+
+        secs = {"C": [], "Python": []}
+        alis = {}
+        setattr(al, reader, counted_reader)
+        try:
+            for route in ("C", "Python", "Python", "C"):
+                t = time.perf_counter()
+                if route == "C":
+                    ali = al.Alignment.from_path(path, fmt, device="cpu")
+                else:
+                    with open(path) as f:
+                        ali = al.Alignment.from_file(f, fmt, device="cpu")
+                secs[route].append(time.perf_counter() - t)
+                alis[route] = ali
+        finally:
+            setattr(al, reader, original)
+        # the Python reader ran only for the two from_file calls
+        assert len(python_reads) == 2, python_reads
+        c, py = alis["C"], alis["Python"]
+        assert list(c.ids) == list(py.ids)
+        assert c.matrix.shape == py.matrix.shape
+        assert (c.matrix == py.matrix).all()
+        assert _plain(c.annotation) == _plain(py.annotation)
+        log("phase 10a {} reader, {} ({:.1f} MB, {} x {}): ids, matrix and "
+            "annotation equal; C route {} s, Python reader {} s (host "
+            "clock, C, Python, Python, C)".format(
+                fmt, os.path.basename(path), os.path.getsize(path) / 1e6,
+                c.N, c.L, ", ".join("{:.3f}".format(s) for s in secs["C"]),
+                ", ".join("{:.3f}".format(s) for s in secs["Python"])))
+
+    launches = dict.fromkeys(kernel_counts(), 0)
+    align_secs = {"C": [], "Python": []}
+    native_fasta = al.Alignment.__dict__["_from_native_fasta"]
+    for k, route in enumerate(("C", "Python", "Python", "C")):
+        config = pipeline_config(os.path.join(tmp, "align_{}".format(k),
+                                              "job"), full, "TARGET",
+                                 align_kw, {}, stages=["align"])
+        if route == "Python":
+            al.Alignment._from_native_fasta = classmethod(
+                lambda cls, *args: None)
+        try:
+            state, counts, _ = run_job(config)
+        finally:
+            al.Alignment._from_native_fasta = native_fasta
+        assert counts["K1"] == 1, counts
+        for key in counts:
+            launches[key] += counts[key]
+        align_secs[route].append(runtime_seconds(state)["align"])
+    log("phase 10a 6b-style job, align stage alone (N={}, N_eff on the "
+        "card): C route {} s, Python reader {} s (C, Python, Python, "
+        "C)".format(state["num_sequences"],
+                    ", ".join("{:.3f}".format(s) for s in align_secs["C"]),
+                    ", ".join("{:.3f}".format(s)
+                              for s in align_secs["Python"])))
+    return launches
+
+
+def fold_tools(directory, a2m):
+    """The fake folding binaries (tests/fold_fixtures.py) for an a2m's
+    target: its gap-free first row, numbered from its header's start."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import fold_fixtures as ff
+
+    with open(a2m) as f:
+        header = f.readline()[1:].strip()
+        target = f.readline().strip()
+    start = int(header.split("/")[1].split("-")[0])
+    return ff.write_fold_tools(directory, target, first_index=start)
+
+
+def five_stage_config(prefix, a2m, sequence_id, align_kw, couplings_kw,
+                      structure_dir, sifts_table, tools, fold):
+    """[align, couplings, compare, mutate, fold] on the card: compare as
+    in phase 8 (monomer_job), fold on the fake binaries."""
+    config = monomer_job(prefix, a2m, sequence_id, align_kw, couplings_kw,
+                         structure_dir, sifts_table)
+    config["stages"] = list(FIVE_STAGES)
+    config["tools"] = dict(config["tools"], cns=tools["cns"],
+                           maxcluster=tools["maxcluster"],
+                           psipred=tools["runpsipred"])
+    config["fold"] = fold
+    return config
+
+
+def run_five_stages(config, not_produced):
+    """The five-stage job through execute_wrapped. Without matplotlib the
+    mutate stage cannot draw: the job then runs [align, couplings,
+    compare], mutate computes its matrix without plots (run_mutate) into
+    the mutate stage's directory, its outcfg is written where the
+    pipeline reuses a skipped stage's, and [fold] follows. Returns
+    (state, launches, {stage: seconds}, seconds)."""
+    from evcouplings_torch.utils.config import write_config_file
+    from evcouplings_torch.utils.system import insert_dir
+
+    if have_matplotlib():
+        state, counts, secs = run_job(config)
+        return state, counts, runtime_seconds(state), secs
+    state, counts, secs = run_job(dict(config, stages=FIVE_STAGES[:3]))
+    stages = runtime_seconds(state)
+    mutate_prefix = insert_dir(config["global"]["prefix"], "mutate")
+    out, stages["mutate"] = run_mutate(state["model_file"], mutate_prefix,
+                                       not_produced)
+    write_config_file(mutate_prefix + "_mutate.outcfg", out)
+    state, fold_counts, fold_secs = run_job(dict(config, stages=["fold"]))
+    stages.update(runtime_seconds(state))
+    counts = {k: counts[k] + fold_counts[k] for k in counts}
+    return state, counts, stages, secs + stages["mutate"] + fold_secs
+
+
+def phase10b(tmp, small, align_kw, not_produced):
+    """The small job (the phase-6a generator, N=150, L=18) through all
+    five stages on the card, against phase 8b's three seeded structures,
+    fold with the sample config's probability cutoffs, a short count
+    ramp, two models per sub-run, cpu 2 (a spawned pool in a process that
+    holds a CUDA context) and its intermediate files kept; then compare
+    and fold alone on the host over a copy of the card job's tree (the
+    two fits differ in their last bits, phase 6a). Every compare and
+    every fold artifact must be equal. Returns the card job's launches."""
+    import shutil
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import compare_fixtures as ss
+    import fold_fixtures as ff
+
+    root = os.path.join(tmp, "fold_small")
+    structure_dir, table = write_structures(root, *ss.small_structure_set())
+    tools = fold_tools(os.path.join(FOLD_DIR, "small"), small)
+    couplings_kw = dict(iterations=12, reuse_ecs=False,
+                        min_sequence_distance=3, scoring_model="skewnormal")
+    card_root = os.path.join(root, "card")
+    config = five_stage_config(
+        os.path.join(card_root, "job"), small, "TARGET_SEQ", align_kw,
+        couplings_kw, structure_dir, table, tools,
+        ff.fold_section(num_models=2, cpu=2, cleanup=False))
+    state, counts, stages, secs = run_five_stages(config, not_produced)
+    assert counts["K1"] == 2 and counts["K4"] > 0, counts
+    assert len(state["folded_structure_files"]) >= 4
+    host_root = os.path.join(root, "host")
+    shutil.copytree(card_root, host_root)
+    host_config = dict(config, stages=["compare", "fold"], **{
+        "global": dict(config["global"],
+                       prefix=os.path.join(host_root, "job"),
+                       device="cpu")})
+    host_state, _, host_secs = run_job(host_config)
+    compared, err = ss.assert_same_compare_artifacts(
+        stage_outcfg(config, "compare"), stage_outcfg(host_config, "compare"),
+        card_root, host_root)
+    folded = ff.assert_same_fold_artifacts(
+        stage_outcfg(config, "fold"), stage_outcfg(host_config, "fold"),
+        card_root, host_root)
+    assert compared >= 14 and folded >= 20, (compared, folded)
+    log("phase 10b small five-stage job on the card {:.2f} s (stages {}), "
+        "compare and fold alone on the host {:.2f} s (stages {}): {} "
+        "compare artifacts equal (max |dist diff| {:.2e} A), {} fold "
+        "artifacts equal ({} models, restraint tables, CNS scripts, "
+        "ranking, comparison tables); launches {}".format(
+            secs, json.dumps(stages), host_secs,
+            json.dumps(runtime_seconds(host_state)), compared, err, folded,
+            len(state["folded_structure_files"]), json.dumps(counts)))
+    return counts
+
+
+def phase10c(tmp, full, align_kw, couplings_kw, not_produced,
+             num_models=3):
+    """The full-width five-stage job: the phase-6b planted synthetic
+    (N=16384 + focus, L=160) through align, couplings (parity), compare
+    against phase 8c's ten seeded structures, mutate and fold with the
+    sample config's fold settings (config/sample_config_monomer.txt:
+    probability cutoffs [0.90, 0.99], the count ramp 0.5-1.3 by 0.05 over
+    19 sub-runs, cleanup), cpu 4. Depth is cut: 3 models per sub-run
+    instead of the config's 10, with which the phase took 77 s on an
+    NVIDIA H100 80GB HBM3 at 700 W (each fake CNS call is a process
+    start). Returns the job's launches."""
+    import pandas as pd
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import compare_fixtures as ss
+    import evcouplings_torch.fold.protocol as fd
+    import fold_fixtures as ff
+
+    root = os.path.join(tmp, "fold_full")
+    structures, rows = ss.full_structure_set(160, PLANTED)
+    structure_dir, table = write_structures(root, structures, rows,
+                                            truncated=("1t10",))
+    tools = fold_tools(os.path.join(FOLD_DIR, "full"), full)
+    fold = ff.fold_section(num_models=num_models, cpu=4, sample=True)
+    config = five_stage_config(os.path.join(root, "job"), full, "TARGET",
+                               align_kw, couplings_kw, structure_dir, table,
+                               tools, fold)
+    # the fold stage's time split, by wrapping the functions it calls; the
+    # rest is the sub-runs on the pool and the copies of their models
+    split = dict.fromkeys(("secondary structure", "clash filter",
+                           "ranking", "clustering", "comparison"), 0.0)
+    wrapped = (("secondary structure", "secondary_structure"),
+               ("clash filter", "secstruct_clashes"),
+               ("ranking", "dihedral_ranking"),
+               ("clustering", "maxcluster_clustering_table"),
+               ("comparison", "_write_experiment_comparisons"))
+    originals = {name: getattr(fd, name) for _, name in wrapped}
+
+    def timing(part, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                split[part] += time.perf_counter() - t
+        return run
+
+    for part, name in wrapped:
+        setattr(fd, name, timing(part, originals[name]))
+    try:
+        state, counts, stages, secs = run_five_stages(config, not_produced)
+    finally:
+        for name, fn in originals.items():
+            setattr(fd, name, fn)
+    assert counts["K1"] == 2 and counts["K4"] > 0, counts
+    longrange = pd.read_csv(state["ec_compared_longrange_file"])
+    top8 = longrange.iloc[:8]
+    want8 = {(i + 1, j + 1) for i, j in PLANTED}
+    assert set(zip(top8.i, top8.j)) == want8, top8
+    assert (top8.precision == 1.0).all(), top8
+    models = state["folded_structure_files"]
+    ranking = pd.read_csv(state["folding_ranking_file"])
+    comparison = pd.read_csv(state["folding_comparison_file"])
+    assert len(ranking) == len(models) > 0
+    assert np.isfinite(ranking.ranking_score).all()
+    assert comparison.tm.notna().all()
+    assert len(state["folding_individual_comparison_files"]) == \
+        len(state["remapped_pdb_files"])
+    rest = stages["fold"] - sum(split.values())
+    log("phase 10c full-width five-stage job N={} L={}: {:.2f} s; stages "
+        "{}; top 8 long-range compared ECs = the 8 planted pairs, "
+        "precision 1.0; fold: {} models ({} per sub-run, cpu {}), ranking "
+        "score {:.4f}-{:.4f}, compared against {} remapped structures; "
+        "fold stage split (s): {}, sub-runs on the pool and the rest "
+        "{:.3f}; launches {}".format(
+            state["num_sequences"], state["num_sites"], secs,
+            json.dumps(stages), len(models), num_models, fold["cpu"],
+            float(ranking.ranking_score.min()),
+            float(ranking.ranking_score.max()),
+            len(state["remapped_pdb_files"]),
+            json.dumps({k: round(v, 4) for k, v in split.items()}), rest,
+            json.dumps(counts)))
     return counts
 
 
@@ -1441,7 +1764,8 @@ def main():
 
     # ---- phase 1: build every native source, one compiler each, at once
     t = time.perf_counter()
-    _build.build_all(["reweight", "seqdot", "seqdot_host"])
+    _build.build_all(["reweight", "seqdot", "seqdot_host", "fasta_io",
+                      "stockholm_io"])
     log("phase 1 build: {:.1f} s (nvcc/cc, in parallel)".format(
         time.perf_counter() - t))
     rng = np.random.default_rng(SEED)
@@ -1988,11 +2312,31 @@ def main():
     log("phase 9 launches by job: {}; phase 9 took {:.1f} s".format(
         json.dumps(phase9), time.perf_counter() - t9))
 
+    # ---- phase 10: the C alignment readers against the Python readers
+    # (10a), the five-stage job card against host at a small size (10b)
+    # and at full width with the sample config's fold settings (10c)
+    t10 = time.perf_counter()
+    shutil.rmtree(FOLD_DIR, ignore_errors=True)
+    phase10_probe()
+    phase10 = {"10a align jobs": phase10a_readers(tmp, full, align_kw),
+               "10b small five-stage job": phase10b(tmp, small,
+                                                    small_align_kw,
+                                                    not_produced)}
+    t10c = time.perf_counter()
+    phase10["10c full-width five-stage job"] = phase10c(
+        tmp, full, align_kw, sample_couplings, not_produced)
+    phase10_launches = {k: sum(c[k] for c in phase10.values())
+                        for k in kernel_counts()}
+    log("phase 10 launches by job: {}; 10c took {:.1f} s, phase 10 {:.1f} "
+        "s".format(json.dumps(phase10), time.perf_counter() - t10c,
+                   time.perf_counter() - t10))
+
     for k, row in rows.items():
         row["launches"] = launches[k]
         row["pipeline_launches"] = pipeline_launches[k]
         row["compare_job_launches"] = phase8_launches[k]
         row["search_job_launches"] = phase9_launches[k]
+        row["fold_job_launches"] = phase10_launches[k]
     for item in sorted(not_produced):
         log("phase 6 not produced:", item)
     log(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4")]}))

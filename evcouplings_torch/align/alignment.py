@@ -4,8 +4,10 @@ evcouplings_tpu/align/alignment.py).
 
 The container is a numpy character matrix on the host, so string-level
 operations (case changes, gap replacement, column selection) stay cheap.
-Files are parsed by the pure-Python readers (fasta/a2m, a3m, Stockholm);
-the JAX package's C parsers are not used. The numeric members
+Alignment.from_path reads FASTA/A2M and Stockholm files with the port's
+C readers (evcouplings_torch.native, built from csrc/ at first use) and
+everything else, or what they refuse, with the Python readers (fasta/a2m,
+a3m, Stockholm), which from_file always uses. The numeric members
 (set_weights, frequencies, pair_frequencies, identities_to, conservation)
 run on the port's tensor operations: on the CUDA device unless the
 alignment (or the call) names another device. set_weights' O(N^2 L)
@@ -347,6 +349,10 @@ def map_matrix(matrix, map_):
     return lut[codes.astype(np.int64)]
 
 
+# from_file keywords that configure a parser, not the Alignment itself
+_PARSER_ONLY_KWARGS = ("raise_hmmer_prefixes", "a3m_inserts")
+
+
 class Alignment:
     """Container to store and manipulate multiple sequence alignments.
 
@@ -434,7 +440,15 @@ class Alignment:
     @classmethod
     def from_path(cls, path, format=None, split_header=False, **kwargs):
         """Create an alignment from a file path (format None: detected
-        from the file's content and extension)."""
+        from the file's content and extension).
+
+        FASTA/A2M and Stockholm files are read by the port's C readers
+        (evcouplings_torch.native); a file they refuse with ValueError
+        (ragged a3m-style rows, a truncated Stockholm file, bytes the
+        strict input guard refuses) and every other format go through the
+        Python readers. Behavior is identical to from_file on an open
+        handle.
+        """
         if format is None:
             with open(path) as f:
                 format = detect_format(f, filepath=path)
@@ -444,10 +458,84 @@ class Alignment:
                     "automatically detected.".format(path)
                 )
 
+        if format == "fasta":
+            loaded = cls._from_native_fasta(path, split_header, kwargs)
+            if loaded is not None:
+                return loaded
+        elif format == "stockholm":
+            loaded = cls._from_native_stockholm(
+                path, split_header, kwargs
+            )
+            if loaded is not None:
+                return loaded
+
         with open(path) as f:
             return cls.from_file(
                 f, format=format, split_header=split_header, **kwargs
             )
+
+    @classmethod
+    def _from_native_fasta(cls, path, split_header, kwargs):
+        """The C fasta reader; None means "use the Python reader" (ragged
+        a3m-style input, or bytes the strict guard refuses)."""
+        from evcouplings_torch.native import parse_fasta_native
+
+        try:
+            ids, matrix = parse_fasta_native(path)
+        except ValueError:
+            return None
+
+        # duplicate headers: the Python path dedups FULL headers first
+        # (OrderedDict: the first occurrence keeps its position, the last
+        # supplies the sequence), THEN splits, then dedups the split ids
+        # the same way; both stages are replicated here
+        def _dedup(names, mat):
+            if len(set(names)) == len(names):
+                return names, mat
+            last = {n: k for k, n in enumerate(names)}
+            seen = set()
+            order = [
+                n for n in names if not (n in seen or seen.add(n))
+            ]
+            return order, mat[[last[n] for n in order]]
+
+        ids, matrix = _dedup(ids, matrix)
+        if split_header:
+            ids = [i.split()[0] for i in ids]
+            ids, matrix = _dedup(ids, matrix)
+
+        ctor_kwargs = {
+            k: v for k, v in kwargs.items()
+            if k not in _PARSER_ONLY_KWARGS
+        }
+        return cls(matrix, ids, **ctor_kwargs)
+
+    @classmethod
+    def _from_native_stockholm(cls, path, split_header, kwargs):
+        """The C stockholm reader; None means "use the Python reader"
+        (a layout it does not cover); HMMER's prefix warning is raised."""
+        from evcouplings_torch.native import parse_stockholm_native
+
+        rhp = kwargs.get("raise_hmmer_prefixes", True)
+        try:
+            ids, matrix, annotation = parse_stockholm_native(
+                path, raise_hmmer_prefixes=rhp,
+            )
+        except ValueError as e:
+            if "HMMER added identifier prefixes" in str(e):
+                raise
+            return None
+
+        if split_header:
+            ids = [i.split()[0] for i in ids]
+
+        ctor_kwargs = {
+            k: v for k, v in kwargs.items()
+            # the parsed annotation wins, as in the Python from_file path
+            # (which overwrites a user-passed annotation kwarg)
+            if k not in _PARSER_ONLY_KWARGS and k != "annotation"
+        }
+        return cls(matrix, ids, annotation=annotation, **ctor_kwargs)
 
     def __getitem__(self, index):
         row = self.id_to_index.get(index)

@@ -10,8 +10,10 @@ interface (no PyTorch headers, so a build takes seconds). A CUDA source
          -Xcompiler -fPIC -o build/evcouplings_torch/<name>-<key>.so csrc/<name>.cu
 
 and a host source <name>.c by the C compiler (cc -O2 -shared -fPIC
--ffp-contract=off). `key` hashes the source, the headers beside it and
-the flags, so an edited source never loads a stale library. Libraries
+-ffp-contract=off): the sequential-dot host chain and the alignment
+readers (fasta_io.c, stockholm_io.c). `key` hashes the source, the
+headers beside it (.cuh and .h) and the flags, so an edited source or
+header never loads a stale library. Libraries
 are built at first use, or all at once (one compiler process per source,
 in parallel) by build_all(). Every CUDA entry point returns the
 cudaError_t of its launch; check_launch() turns a non-zero code into an
@@ -78,12 +80,14 @@ def _source(name):
 
 def library_path(name):
     """Where the library of csrc/<name>.{cu,c} is built, keyed on
-    content."""
+    content: the source, every header in csrc/ (.cuh and .h) and the
+    flags."""
     src = _source(name)
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS if src.suffix == ".cu"
                       else CC_FLAGS).encode())
-    for p in [src] + sorted(CSRC_DIR.glob("*.cuh")):
+    headers = sorted(CSRC_DIR.glob("*.cuh")) + sorted(CSRC_DIR.glob("*.h"))
+    for p in [src] + headers:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / "{}-{}.so".format(name, h.hexdigest()[:16])

@@ -1,8 +1,8 @@
 """
-Calculation helpers (the part of evcouplings_tpu/utils/calculations.py
-the port uses): entropies of distributions and of frequency matrices'
-columns, and the median absolute deviation. Small host-side numpy
-helpers.
+Calculation helpers (port of evcouplings_tpu/utils/calculations.py):
+entropies of distributions and of frequency matrices' columns, the
+dihedral angle of four points (the fold stage's model ranking) and the
+median absolute deviation. Small host-side numpy helpers in float64.
 """
 
 import numpy as np
@@ -41,6 +41,25 @@ def entropy_map(model, normalize=True):
     return dict(zip(
         model.index_list, entropy_vector(model, normalize)
     ))
+
+
+def dihedral_angle(p0, p1, p2, p3):
+    """Dihedral/torsion angle (radians) defined by four 3D points."""
+    bond_back = -1.0 * (p1 - p0)
+    axis = p2 - p1
+    bond_fwd = p3 - p2
+
+    axis = axis / np.linalg.norm(axis)
+
+    # vector rejections of the outer bonds onto the plane
+    # perpendicular to the central axis
+    rej_back = bond_back - np.dot(bond_back, axis) * axis
+    rej_fwd = bond_fwd - np.dot(bond_fwd, axis) * axis
+
+    return np.arctan2(
+        np.dot(np.cross(axis, rej_back), rej_fwd),
+        np.dot(rej_back, rej_fwd),
+    )
 
 
 def median_absolute_deviation(x, scale=1.4826):

@@ -1,7 +1,8 @@
 """
 Small generic helpers (the subset of evcouplings_tpu/utils/helpers.py
 that the port uses): an ordered default dict, fixed-width sequence
-wrapping, range overlaps and runs of consecutive positions.
+wrapping, range overlaps, runs of consecutive positions and jinja2
+template rendering (the fold stage's CNS scripts).
 """
 
 import reprlib as _reprlib
@@ -88,3 +89,13 @@ def find_segments(data):
             start = prev = x
     segments.append((start, prev))
     return segments
+
+
+def render_template(template_file, mapping):
+    """Render a jinja2 template file with the given mapping (jinja2 is
+    imported here: only the fold stage needs it)."""
+    import jinja2
+
+    with open(template_file) as f:
+        template = jinja2.Template(f.read())
+    return template.render(mapping)

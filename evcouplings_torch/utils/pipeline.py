@@ -13,11 +13,11 @@ absent: the CUDA device, "cpu": the host) reaches every numeric call.
 With EVCOUPLINGS_TRACE_DIR set, each stage also writes a torch.profiler
 trace there (utils/tracing.device_trace).
 
-The monomer table keeps all five stages. align, couplings, compare and
-mutate run the port's protocols (as in the JAX package, the mutate stage
-follows compare and reuses compare's outcfg when compare is skipped);
-fold raises NotImplementedError naming ROADMAP A19b, and the
-protein_complex pipeline naming A19c.
+The monomer table runs all five stages through the port's protocols:
+align, couplings, compare, mutate and fold (as in the JAX package, the
+mutate stage follows compare and reuses compare's outcfg when compare is
+skipped). The protein_complex pipeline raises NotImplementedError naming
+ROADMAP A19c.
 """
 
 import os
@@ -54,15 +54,8 @@ from evcouplings_torch.utils.tracing import (
 import evcouplings_torch.align.protocol as ap
 import evcouplings_torch.compare.protocol as cm
 import evcouplings_torch.couplings.protocol as cp
+import evcouplings_torch.fold.protocol as fd
 import evcouplings_torch.mutate.protocol as mt
-
-
-def _unported_stage(stage, item):
-    def runner(**kwargs):
-        raise NotImplementedError(
-            "the {} stage is not ported yet (ROADMAP {})".format(
-                stage, item))
-    return runner
 
 
 # supported pipelines: list of (stage name, runner, output key prefix)
@@ -71,7 +64,7 @@ _MONOMER_STAGES = [
     ("couplings", cp.run, None),
     ("compare", cm.run, None),
     ("mutate", mt.run, None),
-    ("fold", _unported_stage("fold", "A19b"), None),
+    ("fold", fd.run, None),
 ]
 
 PIPELINES = {

@@ -1,9 +1,8 @@
 """
 Pymol .pml script generation for mapping properties onto 3D structures
-(the part of evcouplings_tpu/visualize/pymol.py the couplings and mutate
-stages use): pymol_pair_lines, pymol_mapping. Pure text generation, no
-Pymol dependency. The secondary-structure script waits for the fold
-stage.
+(port of evcouplings_tpu/visualize/pymol.py): pymol_secondary_structure,
+pymol_pair_lines, pymol_mapping. Pure text generation, no Pymol
+dependency.
 """
 
 import pandas as pd
@@ -32,6 +31,28 @@ def _styled(row, key):
 def _pymol_color(hex_color):
     """Pymol spells hex colors 0xrrggbb."""
     return hex_color.replace("#", "0x")
+
+
+# predicted 3-state -> pymol ss codes (coil stays unassigned)
+_SS_CODES = {"H": "H", "E": "S"}
+
+
+def pymol_secondary_structure(residues, output_file, chain=None,
+                              sec_struct_column="sec_struct_3state"):
+    """Assign predicted secondary structure (H/E) to a structure."""
+    on_chain = _chain_clause(chain)
+
+    cmds = [
+        "alter (resi {}{}), ss='{}'".format(
+            row["i"], on_chain, _SS_CODES[row[sec_struct_column]]
+        )
+        for _, row in residues.iterrows()
+        if row[sec_struct_column] in _SS_CODES
+    ]
+    cmds.append("rebuild")
+
+    _write_pymol_commands(cmds, output_file)
+    return cmds
 
 
 def pymol_pair_lines(pairs, output_file, chain=None, atom="CA",

@@ -248,13 +248,22 @@ def test_unported_parts_name_their_item(tmp_path, stages, edit, item):
 
 
 def test_monomer_table_keeps_every_stage():
+    """All five stages, each bound to the port's protocol module (fold
+    since ROADMAP A19b; its job is in tests/test_torch_fold_pipeline.py)."""
+    from evcouplings_torch.align import protocol as align
+    from evcouplings_torch.compare import protocol as compare
+    from evcouplings_torch.couplings import protocol as couplings
+    from evcouplings_torch.fold import protocol as fold
+    from evcouplings_torch.mutate import protocol as mutate
+
     table = pipeline.PIPELINES["protein_monomer"]
     assert [stage for stage, _, _ in table] == [
         stage for stage, _, _ in jax_pipeline.PIPELINES["protein_monomer"]]
-    for stage, item in (("fold", "A19"),):
-        runner = dict((name, run) for name, run, _ in table)[stage]
-        with pytest.raises(NotImplementedError, match="ROADMAP " + item):
-            runner(prefix="unused")
+    runners = {name: run for name, run, _ in table}
+    assert runners == {"align": align.run, "couplings": couplings.run,
+                       "compare": compare.run, "mutate": mutate.run,
+                       "fold": fold.run}
+    assert runners["fold"] is fold.run
 
 
 def test_invalid_settings_raise(tmp_path):

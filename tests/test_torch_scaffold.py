@@ -40,6 +40,14 @@ PORT_MODULES = [
     "evcouplings_torch.couplings.pairs",
     "evcouplings_torch.couplings.protocol",
     "evcouplings_torch.couplings.tools",
+    "evcouplings_torch.fold",
+    "evcouplings_torch.fold.cns",
+    "evcouplings_torch.fold.filter",
+    "evcouplings_torch.fold.haddock",
+    "evcouplings_torch.fold.protocol",
+    "evcouplings_torch.fold.ranking",
+    "evcouplings_torch.fold.restraints",
+    "evcouplings_torch.fold.tools",
     "evcouplings_torch.kernels._build",
     "evcouplings_torch.kernels.adam_update",
     "evcouplings_torch.kernels.reweight",
@@ -47,6 +55,7 @@ PORT_MODULES = [
     "evcouplings_torch.mutate",
     "evcouplings_torch.mutate.calculations",
     "evcouplings_torch.mutate.protocol",
+    "evcouplings_torch.native",
     "evcouplings_torch.ops.distances",
     "evcouplings_torch.ops.encode",
     "evcouplings_torch.ops.frequencies",
@@ -87,10 +96,8 @@ QUEUED_NAMES = {
         "SCORING_MODELS", "complex_probability"},
     "evcouplings_torch.ops.mean_field": {            # A18
         "invert_covariance_sharded"},
-    "evcouplings_torch.utils.calculations": {"dihedral_angle"},   # A19b
-    "evcouplings_torch.utils.helpers": {
-        "render_template",                           # A19b
-        "PersistentDict", "Progressbar", "retry"},   # A19d
+    "evcouplings_torch.utils.helpers": {             # A19d
+        "PersistentDict", "Progressbar", "retry"},
     "evcouplings_torch.utils.tracker": {             # A19d
         "TRACKER_MAX_NUM_RETRIES", "TRACKER_PASSWORD_KEY",
         "TRACKER_RETRY_WAIT", "TRACKER_USERNAME_KEY", "environ",
@@ -98,8 +105,6 @@ QUEUED_NAMES = {
     "evcouplings_torch.utils.tracker.base": {        # A19d
         "DEFAULT_FILE_COLLECTION", "DEFAULT_RESULT_COLLECTION",
         "ResultTracker"},
-    "evcouplings_torch.visualize": {"pymol_secondary_structure"},  # A19b
-    "evcouplings_torch.visualize.pymol": {"pymol_secondary_structure"},
 }
 # public names the port has beside its twin's: device selection, the
 # float64 host inversion and the distance blocks' size, the snapshot
