@@ -30,11 +30,17 @@ against its Python readers at full width and times both (10a), and runs
 the monomer pipeline's five stages (align, couplings, compare, mutate,
 fold; the fold stage on fake CNS, PSIPRED and maxcluster binaries): a
 small job card against host (10b), then the full-width job with the
-sample config's fold settings (10c). Every
+sample config's fold settings (10c). Phase 11 runs the protein-complex
+pipeline (two monomer alignments, align `complex` with local EMBL and ENA
+tables, their concatenation, couplings, compare, mutate and fold
+`complex`/`complex_dock`): small jobs card against host with both
+concatenation protocols (11a), then the full-width job with the sample
+complex config's settings (11b). Every
 phase raises on a mismatch; nothing is caught, except that a machine
-without matplotlib cannot draw the mutate stage's plots, which the
-script then names before its last lines (the compare stage is then
-configured to draw no figure). The last lines are a JSON object
+without matplotlib cannot draw the mutate stage's plots (nor the
+complex concatenation's distance plot), which the script then names
+before its last lines (the compare stage is then configured to draw no
+figure). The last lines are a JSON object
 describing each kernel, the card's name and power limit as nvidia-smi
 reports them, and {"ok": true, "device": {...}}.
 
@@ -257,8 +263,9 @@ def pipeline_config(prefix, a2m, sequence_id, align_kw, couplings_kw,
     }
 
 
-def run_mutate(model_file, prefix, not_produced):
-    """mutate `standard` on a fitted model; returns (outcfg, seconds).
+def run_mutate(model_file, prefix, not_produced, segments=None):
+    """mutate `standard` on a fitted model (with segments: `complex`);
+    returns (outcfg, seconds).
 
     Where matplotlib is not installed, the stage's plots (and the pymol
     scripts, whose colors come from matplotlib) cannot be made: that
@@ -268,6 +275,9 @@ def run_mutate(model_file, prefix, not_produced):
     """
     import importlib.util
 
+    from evcouplings_torch.couplings.mapping import (
+        MultiSegmentCouplingsModel, Segment,
+    )
     from evcouplings_torch.couplings.model import CouplingsModel
     from evcouplings_torch.mutate import protocol as mutate
     from evcouplings_torch.mutate.calculations import (
@@ -275,25 +285,35 @@ def run_mutate(model_file, prefix, not_produced):
     )
 
     t = time.perf_counter()
+    protocol = "standard" if segments is None else "complex"
+    extra = {} if segments is None else {"segments": segments}
     try:
-        out = mutate.run(protocol="standard", prefix=prefix,
-                         model_file=model_file, mutation_dataset_file=None)
+        out = mutate.run(protocol=protocol, prefix=prefix,
+                         model_file=model_file, mutation_dataset_file=None,
+                         **extra)
     except ModuleNotFoundError as e:
         if (e.name != "matplotlib"
                 or importlib.util.find_spec("matplotlib") is not None):
             raise
-        epistatic = CouplingsModel(model_file)
+        if segments is None:
+            epistatic = CouplingsModel(model_file)
+            others = [("independent", epistatic.to_independent_model())]
+        else:
+            epistatic = MultiSegmentCouplingsModel(
+                model_file, *[Segment.from_list(s) for s in segments])
+            others = [("independent", epistatic.to_independent_model()),
+                      ("inter_segment", epistatic.to_inter_segment_model())]
         table = single_mutant_matrix(
             epistatic, output_column="prediction_epistatic")
-        table = predict_mutation_table(
-            epistatic.to_independent_model(), table,
-            "prediction_independent")
+        for tag, model in others:
+            table = predict_mutation_table(model, table, "prediction_" + tag)
         out = {"mutation_matrix_file": prefix + "_single_mutant_matrix.csv"}
         table.to_csv(out["mutation_matrix_file"], index=False)
         not_produced.add(
-            "mutate: {0}_{{epistatic,independent}}_model.pdf and .pml "
-            "(matplotlib is not installed on this machine)".format(
-                os.path.basename(prefix)))
+            "mutate {}: {}_{{{}}}_model.pdf and .pml (matplotlib is not "
+            "installed on this machine)".format(
+                protocol, os.path.basename(prefix),
+                ",".join(["epistatic"] + [tag for tag, _ in others])))
     return out, time.perf_counter() - t
 
 
@@ -451,18 +471,22 @@ def phase7a_fista(tmp, a2m, common):
     return main_counts
 
 
-def profile_device_time(what, fn):
+def profile_device_time(what, fn, host_ops=True):
     """fn() once under torch.profiler: the wall time, the device's busy
     share of it, the GEMMs' share of the busy time, and the kernels with
     the most device time. Returns the wall and busy seconds and the
     number of device operations (kernels, copies, fills), or None when
-    the profiler saw no device time."""
+    the profiler saw no device time. host_ops=False traces the device
+    alone (a long host-bound stage: the host ops' trace takes longer to
+    read than the stage)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         _, wall = timed(fn)
     # user annotations (a fit's plm_step_chunk ranges) enclose kernels
     # already counted: leave them out of the busy sum
@@ -1548,12 +1572,39 @@ def five_stage_config(prefix, a2m, sequence_id, align_kw, couplings_kw,
     return config
 
 
-def run_five_stages(config, not_produced):
-    """The five-stage job through execute_wrapped. Without matplotlib the
-    mutate stage cannot draw: the job then runs [align, couplings,
-    compare], mutate computes its matrix without plots (run_mutate) into
-    the mutate stage's directory, its outcfg is written where the
-    pipeline reuses a skipped stage's, and [fold] follows. Returns
+def concatenate_without_plot(config, state, not_produced):
+    """The concatenate stage's genome_distance protocol as the pipeline
+    runs it (its input config composed the same way), without the
+    distance plot, which needs matplotlib; its outcfg is written where
+    the pipeline reuses a skipped stage's. Returns (outcfg, seconds)."""
+    import evcouplings_torch.complex.protocol as pp
+    from evcouplings_torch.utils.config import write_config_file
+    from evcouplings_torch.utils.system import insert_dir
+
+    stage_prefix = insert_dir(config["global"]["prefix"], "concatenate")
+    incfg = {**config["tools"], **config["databases"],
+             **config["concatenate"], **state, "prefix": stage_prefix}
+    plot = pp.plot_distance_distribution
+    pp.plot_distance_distribution = lambda *args: not_produced.add(
+        "concatenate genome_distance: {}_distplot.pdf (matplotlib is not "
+        "installed on this machine)".format(os.path.basename(stage_prefix)))
+    try:
+        out, secs = timed(lambda: pp.run(**incfg))
+    finally:
+        pp.plot_distance_distribution = plot
+    del out["distance_plot_file"]
+    write_config_file(stage_prefix + "_concatenate.outcfg", out)
+    return out, secs
+
+
+def run_job_without_plots(config, not_produced):
+    """A job (protein_monomer or protein_complex) through
+    execute_wrapped. Without matplotlib the stages that draw
+    unconditionally cannot run inside the pipeline: the concatenate
+    stage's genome_distance protocol runs without its distance plot
+    (concatenate_without_plot) and mutate computes its matrix without
+    plots (run_mutate); each writes its outcfg where the pipeline reuses
+    a skipped stage's, and the pipeline runs the stages between. Returns
     (state, launches, {stage: seconds}, seconds)."""
     from evcouplings_torch.utils.config import write_config_file
     from evcouplings_torch.utils.system import insert_dir
@@ -1561,16 +1612,45 @@ def run_five_stages(config, not_produced):
     if have_matplotlib():
         state, counts, secs = run_job(config)
         return state, counts, runtime_seconds(state), secs
-    state, counts, secs = run_job(dict(config, stages=FIVE_STAGES[:3]))
-    stages = runtime_seconds(state)
-    mutate_prefix = insert_dir(config["global"]["prefix"], "mutate")
-    out, stages["mutate"] = run_mutate(state["model_file"], mutate_prefix,
-                                       not_produced)
-    write_config_file(mutate_prefix + "_mutate.outcfg", out)
-    state, fold_counts, fold_secs = run_job(dict(config, stages=["fold"]))
-    stages.update(runtime_seconds(state))
-    counts = {k: counts[k] + fold_counts[k] for k in counts}
-    return state, counts, stages, secs + stages["mutate"] + fold_secs
+    outside = {"mutate"}
+    if config.get("concatenate", {}).get("protocol") == "genome_distance":
+        outside.add("concatenate")
+    counts = dict.fromkeys(kernel_counts(), 0)
+    stages, total, group = {}, 0.0, []
+    state = dict(config["global"])
+
+    def flush():
+        nonlocal state, total
+        if group:
+            state, c, secs = run_job(dict(config, stages=list(group)))
+            for k in counts:
+                counts[k] += c[k]
+            stages.update(runtime_seconds(state))
+            total += secs
+            group.clear()
+
+    for stage in config["stages"]:
+        if stage not in outside:
+            group.append(stage)
+            continue
+        flush()
+        if stage == "concatenate":
+            (out, secs), c = counted(lambda: concatenate_without_plot(
+                config, state, not_produced))
+            for k in counts:
+                counts[k] += c[k]
+        else:
+            prefix = insert_dir(config["global"]["prefix"], "mutate")
+            segments = (state["segments"]
+                        if config["mutate"]["protocol"] == "complex" else None)
+            out, secs = run_mutate(state["model_file"], prefix, not_produced,
+                                   segments=segments)
+            write_config_file(prefix + "_mutate.outcfg", out)
+        state = {**state, **out}
+        stages[stage] = secs
+        total += secs
+    flush()
+    return state, counts, stages, total
 
 
 def phase10b(tmp, small, align_kw, not_produced):
@@ -1598,7 +1678,7 @@ def phase10b(tmp, small, align_kw, not_produced):
         os.path.join(card_root, "job"), small, "TARGET_SEQ", align_kw,
         couplings_kw, structure_dir, table, tools,
         ff.fold_section(num_models=2, cpu=2, cleanup=False))
-    state, counts, stages, secs = run_five_stages(config, not_produced)
+    state, counts, stages, secs = run_job_without_plots(config, not_produced)
     assert counts["K1"] == 2 and counts["K4"] > 0, counts
     assert len(state["folded_structure_files"]) >= 4
     host_root = os.path.join(root, "host")
@@ -1676,7 +1756,8 @@ def phase10c(tmp, full, align_kw, couplings_kw, not_produced,
     for part, name in wrapped:
         setattr(fd, name, timing(part, originals[name]))
     try:
-        state, counts, stages, secs = run_five_stages(config, not_produced)
+        state, counts, stages, secs = run_job_without_plots(config,
+                                                            not_produced)
     finally:
         for name, fn in originals.items():
             setattr(fd, name, fn)
@@ -1708,6 +1789,277 @@ def phase10c(tmp, full, align_kw, couplings_kw, not_produced,
             len(state["remapped_pdb_files"]),
             json.dumps({k: round(v, 4) for k, v in split.items()}), rest,
             json.dumps(counts)))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the protein-complex pipeline (A19c): two monomer alignments,
+# align `complex` over `existing` with local UniProt-to-EMBL and ENA tables,
+# their concatenation (best_hit or genome_distance), couplings `complex`
+# on the concatenated alignment (K1 reweights the paired rows, the parity
+# LBFGS drives K4), compare `complex` against seeded two-chain structures
+# (the float64 distance contraction for intra-chain, homomultimer and
+# inter-chain maps on the card), mutate `complex` and fold `complex_dock`.
+# Inputs are made from a seed (tests/complex_fixtures.py).
+# ---------------------------------------------------------------------------
+
+# full width (11b): the two monomers' lengths, and the planted pairs
+# (0-based): inter (site of monomer 1, site of monomer 2) and intra pairs
+COMPLEX_L = (90, 70)
+COMPLEX_INTER = [(5, 12), (30, 44), (52, 3), (77, 60)]
+COMPLEX_INTRA = ([(10, 40), (60, 85)], [(20, 50), (8, 33)])
+
+
+def phase11a(tmp, not_produced):
+    """The small complex job (tests/test_complex.py's generator: two
+    monomers of N=140, L=10, 3 planted inter pairs and one intra pair in
+    each; seeded EMBL and ENA tables; three seeded structures) through all
+    seven stages, with best_hit and with genome_distance, on the card and
+    on the host (device cpu). Card and host: every align_1, align_2 and
+    concatenate artifact equal byte for byte, the model within the golden
+    gate at 12 iterations, the inter ECs in exact rank order,
+    probabilities within atol 1e-3; then compare and fold alone on the
+    host over a copy of the card job's tree (the two fits differ in their
+    last bits): every compare artifact and every docking restraint file
+    equal. Returns the card jobs' launches."""
+    import shutil
+
+    import pandas as pd
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import complex_fixtures as cf
+    import compare_fixtures as ss
+    from evcouplings_torch.couplings.model import CouplingsModel
+
+    root = os.path.join(tmp, "complex_small")
+    from evcouplings_torch.compare.bcif import write_bcif
+
+    inputs = cf.write_job_inputs(os.path.join(root, "in"), write_bcif)
+    launches = dict.fromkeys(kernel_counts(), 0)
+    for protocol in ("best_hit", "genome_distance"):
+        jobs = {}
+        for device in ("cuda", "cpu"):
+            config = cf.job_config(
+                os.path.join(root, protocol, device, "job"), inputs,
+                concatenate=protocol,
+                device=None if device == "cuda" else "cpu",
+                figures=have_matplotlib())
+            jobs[device] = (config,) + run_job_without_plots(config,
+                                                             not_produced)
+        (card_cfg, card, counts, stages, secs), (host_cfg, host, _, hstages,
+                                                  hsecs) = (jobs["cuda"],
+                                                            jobs["cpu"])
+        assert counts["K1"] == 2 and counts["K4"] > 0, counts
+        for k in launches:
+            launches[k] += counts[k]
+        card_root, host_root = (os.path.dirname(c["global"]["prefix"])
+                                for c in (card_cfg, host_cfg))
+        files = sum(cf.assert_same_outputs(
+            stage_outcfg(card_cfg, s), stage_outcfg(host_cfg, s), card_root,
+            host_root) for s in ("align_1", "align_2", "concatenate"))
+        card_m, host_m = (CouplingsModel(s["model_file"])
+                          for s in (card, host))
+        excess = {a: max_rel_excess(getattr(card_m, a), getattr(host_m, a))
+                  for a in ("J_ij", "h_i", "f_i", "f_ij")}
+        assert max(excess.values()) <= 1.0, excess
+        card_ec, host_ec = (pd.read_csv(s["ec_file"]).sort_values(
+            ["i", "j", "segment_i"]).reset_index(drop=True)
+            for s in (card, host))
+        for col in ("cn", "fn"):
+            excess[col] = max_rel_excess(card_ec[col], host_ec[col])
+        assert max(excess.values()) <= 1.0, excess
+        prob_err = float(np.max(np.abs(card_ec.probability.values
+                                       - host_ec.probability.values)))
+        assert prob_err <= 1e-3, prob_err
+        inter = [pd.read_csv(s["inter_ec_file"]) for s in (card, host)]
+        assert_exact_rank_order(inter[0], inter[1])
+        want2 = [(ci + 1, cj + 1) for ci, cj, _ in cf.INTER_PLANTED[:2]]
+        assert list(zip(inter[0].i, inter[0].j))[:2] == want2, inter[0]
+        # compare and fold on the host over a copy of the card job's tree
+        copy_root = os.path.join(root, protocol, "host_on_card_job")
+        shutil.copytree(card_root, copy_root)
+        again = dict(card_cfg, stages=["compare", "fold"], **{
+            "global": dict(card_cfg["global"], device="cpu",
+                           prefix=os.path.join(copy_root, "job"))})
+        _, _, again_secs = run_job(again)
+        compared, err = ss.assert_same_compare_artifacts(
+            stage_outcfg(card_cfg, "compare"), stage_outcfg(again, "compare"),
+            card_root, copy_root)
+        restraints = [stage_outcfg(c, "fold")["docking_restraint_files"]
+                      for c in (card_cfg, again)]
+        assert len(restraints[0]) == len(restraints[1]) > 0
+        for a, b in zip(*restraints):
+            assert os.path.relpath(a, card_root) == os.path.relpath(
+                b, copy_root)
+            with open(a, "rb") as f, open(b, "rb") as g:
+                assert f.read() == g.read(), a
+        log("phase 11a small complex job, {}: card {:.2f} s (stages {}), "
+            "host {:.2f} s (stages {}); {} align and concatenate artifacts "
+            "equal (the concatenated .a2m, _concatenation_statistics.csv, "
+            "genome locations, identities, frequencies, statistics, "
+            "weights), {} paired rows; excess over the 1e-4 gate {}; "
+            "inter EC rank order exact; probability max |err| {:.2e} "
+            "(atol 1e-3); compare and fold on the host over the card "
+            "job's tree {:.2f} s: {} compare artifacts equal (max |dist "
+            "diff| {:.2e} A), {} docking restraint files equal; "
+            "launches {}".format(
+                protocol, secs, json.dumps(stages), hsecs,
+                json.dumps(hstages), files, card["num_sequences"],
+                json.dumps(excess), prob_err, again_secs, compared, err,
+                len(restraints[0]), json.dumps(counts)))
+    return launches
+
+
+def write_complex_monomer(path, target_id, ids, target, codes):
+    """One monomer alignment: the gap-free target row, then the rows."""
+    letters = np.array(list(ALPHABET))
+    with open(path, "w") as f:
+        f.write(">{}\n{}\n".format(target_id, "".join(letters[target])))
+        for name, row in zip(ids, codes):
+            f.write(">{}\n{}\n".format(name, "".join(
+                letters[np.maximum(row, 0)])))
+
+
+def complex_full_inputs(directory, rng, n=16384, paralog_frac=0.05,
+                        query_paralogs=6):
+    """The full-width complex job's inputs: two monomers of n rows + the
+    target (L = 90 and 70, the phase-5 family structure), planted pairs
+    across and within them (plant_pairs, concordance 0.9), one species
+    per paired row; a paralog_frac of species hold a second row of lower
+    identity to the target (most_similar_by_organism picks the first),
+    and the targets' own species holds query_paralogs rows of other
+    families (paralogs: best_reciprocal filtering drops the best hits
+    closer to them than to the target). Each row keeps the target's
+    residue at about half its sites. Annotation, EMBL and ENA tables;
+    seeded structures of the heterodimer with the planted pairs in
+    contact. Returns the paths as complex_fixtures.write_job_inputs."""
+    import pandas as pd
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import complex_fixtures as cf
+
+    os.makedirs(directory, exist_ok=True)
+    L1, L2 = COMPLEX_L
+    n_par = int(round(paralog_frac * n))
+    n_species = n - n_par - query_paralogs
+    codes = np.hstack([
+        synthetic_codes(rng, n_species, L, 21, families=256, mutate=0.15,
+                        gap_rows=0.1, missing_rows=0.0)
+        for L in COMPLEX_L])
+    # homologs of the targets: each row keeps the target's residue at
+    # about half its sites (identity to the target ~0.5; rows of one
+    # family are closer to each other than to other families)
+    target = rng.integers(1, 21, size=L1 + L2)
+    codes = np.where(rng.random(codes.shape) < 0.5, target, codes).astype(
+        np.int8)
+    plant_pairs(rng, codes, [(i, L1 + j) for i, j in COMPLEX_INTER]
+                + COMPLEX_INTRA[0]
+                + [(L1 + i, L1 + j) for i, j in COMPLEX_INTRA[1]])
+    second = rng.choice(n_species, size=n_par, replace=False)
+    weaker = codes[second].copy()
+    same = (weaker == target) & (rng.random(weaker.shape) < 0.5)
+    weaker[same] = weaker[same] % 20 + 1     # another residue
+    others = codes[rng.choice(n_species, size=query_paralogs)].copy()
+    rows = np.vstack([codes, weaker, others])
+    species = (["Sp{}".format(k) for k in range(n_species)]
+               + ["Sp{}".format(k) for k in second]
+               + ["Query"] * len(others))
+    paths, annotations = [], []
+    for m, (tag, lo, hi) in enumerate((("a", 0, L1), ("b", L1, L1 + L2))):
+        L = hi - lo
+        ids = (["{}{}/1-{}".format(tag, k, L) for k in range(n_species)]
+               + ["{}{}p/1-{}".format(tag, k, L) for k in second]
+               + ["{}q{}/1-{}".format(tag, k, L)
+                  for k in range(len(others))])
+        target_id = "T{}/1-{}".format(m + 1, L)
+        path = os.path.join(directory, "m{}.a2m".format(m + 1))
+        write_complex_monomer(path, target_id, ids, target[lo:hi],
+                              rows[:, lo:hi])
+        anno = os.path.join(directory, "anno{}.csv".format(m + 1))
+        pd.DataFrame({"id": [target_id] + ids,
+                      "name": ["T{}".format(m + 1)] + ids,
+                      "OS": ["Query"] + species}).to_csv(anno, index=False)
+        paths.append(path)
+        annotations.append(anno)
+    embl = os.path.join(directory, "uniprot_to_embl.txt")
+    ena = os.path.join(directory, "ena_locations.tsv")
+    cf.write_genome_tables(embl, ena,
+                           ["a{}".format(k) for k in range(n_species)],
+                           ["b{}".format(k) for k in range(n_species)])
+    structure_dir, sifts = write_structures(
+        directory, *cf.complex_structure_set(L1, L2, COMPLEX_INTER,
+                                             *COMPLEX_INTRA))
+    return {"alignments": tuple(paths), "annotations": tuple(annotations),
+            "uniprot_to_embl_table": embl, "ena_genome_location_table": ena,
+            "sifts_mapping_table": sifts, "structure_dir": structure_dir}
+
+
+def phase11b(tmp, rng, not_produced, n=16384):
+    """The full-width complex job (complex_full_inputs: N=16384 + target
+    per monomer, L = 90 + 70 = 160, q = 21) on the sample complex config
+    itself (config/sample_config_complex.txt, read and given local
+    inputs by complex_fixtures.sample_job_config): align `complex` over
+    `existing`, best_hit with the best-reciprocal filter (paralog
+    threshold 0.95), couplings `complex` (lbfgs, parity, skewnormal, intra
+    and inter ECs scored apart, min sequence distance 6), compare
+    `complex` (by a SIFTS lookup) against the seeded heterodimer
+    structures, mutate `complex`, fold `complex_dock`; N_eff
+    is computed in the concatenate stage. Depth is cut: 5 iterations
+    instead of 100, and no archive is written. Gate: the top 4 inter ECs
+    are the planted inter pairs, each a contact in the structures
+    (precision 1.0); K1 twice, K4 launched. The couplings stage runs once
+    more under torch.profiler on a copy of the job's tree (for its device
+    busy share). Returns the job's launches."""
+    import shutil
+
+    import pandas as pd
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import complex_fixtures as cf
+
+    root = os.path.join(tmp, "complex_full")
+    t = time.perf_counter()
+    inputs = complex_full_inputs(os.path.join(root, "in"), rng, n=n)
+    make_secs = time.perf_counter() - t
+    config = cf.sample_job_config(os.path.join(root, "out", "job"), inputs,
+                                  iterations=5, figures=have_matplotlib())
+    # no archive: gzipping the 45 MB .model alone took 17.8 s on the CPU
+    # of a rehearsal (tests/test_torch_complex.py writes the archive)
+    config["management"]["archive"] = None
+    state, counts, stages, secs = run_job_without_plots(config, not_produced)
+    assert counts["K1"] == 2 and counts["K4"] > 0, counts
+    inter = pd.read_csv(state["inter_ec_file"])
+    want4 = {(i + 1, j + 1) for i, j in COMPLEX_INTER}
+    top4 = set(zip(inter.i.values[:4], inter.j.values[:4]))
+    assert top4 == want4, inter.iloc[:8]
+    compared = pd.read_csv(state["ec_compared_inter_file"]).sort_values(
+        "cn", ascending=False)
+    assert set(zip(compared.i.values[:4], compared.j.values[:4])) == want4
+    assert (compared.dist.values[:4] <= 5).all(), compared.iloc[:4]
+    stats = pd.read_csv(state["concatentation_statistics_file"])
+    # the couplings stage again, on a copy of the tree without its outputs
+    copy_root = os.path.join(root, "profiled")
+    shutil.copytree(os.path.join(root, "out"), copy_root, ignore=(
+        lambda d, names: ["couplings"] if d.endswith("job") else []))
+    again = dict(config, stages=["couplings"], **{"global": dict(
+        config["global"], prefix=os.path.join(copy_root, "job"))})
+    prof = profile_device_time("phase 11b couplings stage", lambda: run_job(
+        again), host_ops=False)
+    log("phase 11b full-width complex job: inputs written in {:.2f} s; "
+        "monomers N={} and {} + target, L={} + {}; {} species in both, {} "
+        "paired rows after best-reciprocal filtering and the coverage "
+        "filter (N_eff {:.1f}), L={}; job {:.2f} s; stages {}; top 4 "
+        "inter ECs = the 4 planted inter pairs, each a contact (dist {}), "
+        "precision 1.0; couplings stage under the profiler: device busy "
+        "share {}; launches {}".format(
+            make_secs, stats.num_seqs_1.iloc[0] - 1,
+            stats.num_seqs_2.iloc[0] - 1, *COMPLEX_L,
+            stats.num_species_overlap.iloc[0], state["num_sequences"],
+            state["effective_sequences"], state["num_sites"], secs,
+            json.dumps(stages),
+            [round(float(d), 3) for d in compared.dist.values[:4]],
+            "not measured" if prof is None else "{:.1%}".format(
+                prof["busy_s"] / prof["wall_s"]), json.dumps(counts)))
     return counts
 
 
@@ -2331,12 +2683,26 @@ def main():
         "s".format(json.dumps(phase10), time.perf_counter() - t10c,
                    time.perf_counter() - t10))
 
+    # ---- phase 11: the protein-complex pipeline, card against host at a
+    # small size with both concatenation protocols (11a), then at full
+    # width with the sample complex config's settings (11b)
+    t11 = time.perf_counter()
+    phase11 = {"11a small complex jobs": phase11a(tmp, not_produced)}
+    t11b = time.perf_counter()
+    phase11["11b full-width complex job"] = phase11b(tmp, rng, not_produced)
+    phase11_launches = {k: sum(c[k] for c in phase11.values())
+                        for k in kernel_counts()}
+    log("phase 11 launches by job: {}; 11b took {:.1f} s, phase 11 {:.1f} "
+        "s".format(json.dumps(phase11), time.perf_counter() - t11b,
+                   time.perf_counter() - t11))
+
     for k, row in rows.items():
         row["launches"] = launches[k]
         row["pipeline_launches"] = pipeline_launches[k]
         row["compare_job_launches"] = phase8_launches[k]
         row["search_job_launches"] = phase9_launches[k]
         row["fold_job_launches"] = phase10_launches[k]
+        row["complex_job_launches"] = phase11_launches[k]
     for item in sorted(not_produced):
         log("phase 6 not produced:", item)
     log(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4")]}))

@@ -10,8 +10,10 @@ programs through align.tools, as in the JAX package; the target sequence
 is downloaded only when no local sequence_file is named. The numeric work
 (identities, frequencies, conservation, N_eff through K1) runs on the
 job's `device` (None: the CUDA device, "cpu": the host) through the
-Alignment container. The `complex` protocol needs the complex pipeline
-(ROADMAP A19c) and raises NotImplementedError.
+Alignment container. The `complex` protocol runs one of these monomer
+protocols, then annotates the alignment's members with the genome
+locations of their coding sequences (align/ena.py, from local UniProt to
+EMBL and ENA tables) for the concatenate stage of the complex pipeline.
 """
 
 import os
@@ -32,6 +34,11 @@ from evcouplings_torch.align.alignment import (
     parse_header,
     read_fasta,
     write_fasta,
+)
+from evcouplings_torch.align.ena import (
+    add_full_header,
+    extract_cds_ids,
+    extract_embl_annotation,
 )
 from evcouplings_torch.couplings.mapping import Segment
 from evcouplings_torch.utils.config import (
@@ -892,11 +899,57 @@ def standard(**kwargs):
 
 
 def complex(**kwargs):
-    """Not ported yet (ROADMAP A19c): a monomer alignment protocol plus
-    the genome-location annotations complex pairing needs."""
-    raise NotImplementedError(
-        "align protocol 'complex' needs the complex pipeline, which is "
-        "not ported yet (ROADMAP A19c)")
+    """Protocol: run a monomer alignment protocol (its numerics on the
+    job's `device`), then attach the genome-location annotations complex
+    pairing needs (align/ena.py, on the host)."""
+    check_required(
+        kwargs,
+        ["prefix", "alignment_protocol", "uniprot_to_embl_table",
+         "ena_genome_location_table"],
+    )
+
+    for label, key in (
+        ("Uniprot to EMBL mapping table", "uniprot_to_embl_table"),
+        ("ENA genome location table", "ena_genome_location_table"),
+    ):
+        verify_resources(label + " does not exist", kwargs[key])
+
+    prefix = kwargs["prefix"]
+    create_prefix_folders(prefix)
+
+    inner = kwargs["alignment_protocol"]
+    if inner not in PROTOCOLS:
+        raise InvalidParameterError(
+            "Invalid choice for alignment protocol: {}".format(inner)
+        )
+
+    outcfg = PROTOCOLS[inner](**kwargs)
+
+    # user-provided annotation override for the existing protocol
+    if inner == "existing":
+        check_required(kwargs, ["override_annotation_file"])
+        override = kwargs["override_annotation_file"]
+        if override is not None:
+            verify_resources(
+                "Override annotation file does not exist", override
+            )
+            outcfg["annotation_file"] = prefix + "_annotation.csv"
+            pd.read_csv(override).to_csv(outcfg["annotation_file"])
+
+    genome_location_filename = prefix + "_genome_location.csv"
+    locations = extract_embl_annotation(
+        extract_cds_ids(
+            outcfg["alignment_file"], kwargs["uniprot_to_embl_table"]
+        ),
+        kwargs["ena_genome_location_table"],
+        genome_location_filename,
+    )
+    locations = add_full_header(locations, outcfg["alignment_file"])
+    locations.to_csv(genome_location_filename)
+    outcfg["genome_location_file"] = genome_location_filename
+
+    write_config_file(prefix + ".align_complex.outcfg", outcfg)
+    return outcfg
 
 
 # protocol registry: function names double as the config-facing names

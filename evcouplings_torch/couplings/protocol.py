@@ -8,13 +8,15 @@ fitter (couplings/fitter.run_plm, on the job's `device`); the artifact
 contract (raw EC file, .model, iteration table, outcfg keys) is the JAX
 package's, including restart via reuse_ecs. The `standard` protocol is
 ported with every fit route of couplings/fitter.run_plm (symmetric or
-asymmetric parametrization, exact group-L1, mid-fit checkpoints), and
-`mean_field` (mean-field DCA, couplings/mean_field.py); `complex` raises
-NotImplementedError (it needs the complex pipeline's concatenate stage,
-ROADMAP A19c), as do fits over more than one device (ROADMAP A18).
+asymmetric parametrization, exact group-L1, mid-fit checkpoints),
+`complex` (the same fit on a concatenated two-protein alignment, its
+mixture model fit separately to the intra- and inter-protein ECs), and
+`mean_field` (mean-field DCA, couplings/mean_field.py); fits over more
+than one device raise NotImplementedError (ROADMAP A18).
 """
 
 import os
+import string
 
 import numpy as np
 import pandas as pd
@@ -57,6 +59,13 @@ ALPHABET_MAP = {
     "dna": ALPHABET_DNA,
     "rna": ALPHABET_RNA,
 }
+
+SCORING_MODELS = (
+    "skewnormal",
+    "normal",
+    "evcomplex",
+)
+
 
 def _resolve_fit_device_count(fit_devices, device):
     """Resolve the fit_devices config value ("all", an int, or None =
@@ -493,14 +502,72 @@ def _postprocess_inference(ecs, kwargs, model, outcfg, prefix,
     return ext_outcfg
 
 
-def _unported(name, item):
-    def protocol(**kwargs):
-        raise NotImplementedError(
-            "couplings protocol {!r} is not ported yet (ROADMAP "
-            "{})".format(name, item))
-    protocol.__name__ = name
-    protocol.__doc__ = "Not ported yet (ROADMAP {}): {}.".format(item, name)
-    return protocol
+def complex_probability(ecs, scoring_model, use_all_ecs=False,
+                        score="cn"):
+    """Attach confidence to complex ECs; by default the mixture model is
+    fit separately to intra- and inter-segment ECs."""
+    if use_all_ecs:
+        return pairs.add_mixture_probability(ecs, model=scoring_model)
+
+    rescored = [
+        pairs.add_mixture_probability(
+            part, model=scoring_model, score=score
+        )
+        for part in (ecs.query("segment_i == segment_j"),
+                     ecs.query("segment_i != segment_j"))
+    ]
+    return pd.concat(rescored).sort_values(score, ascending=False)
+
+
+def complex(**kwargs):
+    """Protocol: infer ECs for protein complexes from the concatenated
+    alignment (the fit on the job's `device`, segment-aware scoring, the
+    inter-EC convenience output). The concatenation is a focus alignment
+    (its target header is id1_id2/1-L), so focus_mode defaults to True
+    where the config leaves it out (the JAX package requires the key)."""
+    check_required(
+        kwargs,
+        ["prefix", "min_sequence_distance", "scoring_model",
+         "use_all_ecs_for_scoring"],
+    )
+    kwargs = {"focus_mode": True, **kwargs}
+
+    prefix = kwargs["prefix"]
+
+    outcfg, ecs, segments = infer_plmc(**kwargs)
+    model = CouplingsModel(outcfg["model_file"])
+
+    scoring_model = _validated_choice(
+        kwargs["scoring_model"], SCORING_MODELS, "scoring_model"
+    )
+    use_all_ecs = bool(kwargs["use_all_ecs_for_scoring"] or False)
+    ecs = complex_probability(ecs, scoring_model, use_all_ecs)
+
+    # segment -> PDB chain convention: A, B, ... in segment order
+    chain_mapping = dict(zip(
+        [s.segment_id for s in segments], string.ascii_uppercase,
+    ))
+
+    outcfg = {
+        **outcfg,
+        **_postprocess_inference(
+            ecs, kwargs, model, outcfg, prefix,
+            generate_line_plot=True,
+            generate_enrichment=False,
+            ec_filter="segment_i != segment_j or abs(i - j) >= {}",
+            chain=chain_mapping,
+        ),
+    }
+
+    # inter-segment ECs as separate convenience file
+    ecs = pd.read_csv(outcfg["ec_file"])
+    outcfg["inter_ec_file"] = prefix + "_CouplingScores_inter.csv"
+    ecs.query("segment_i != segment_j").to_csv(
+        outcfg["inter_ec_file"], index=False
+    )
+
+    write_config_file(prefix + ".couplings_complex.outcfg", outcfg)
+    return outcfg
 
 
 def mean_field(**kwargs):
@@ -585,9 +652,6 @@ def mean_field(**kwargs):
     write_config_file(prefix + ".couplings_meanfield.outcfg", outcfg)
     return outcfg
 
-
-# complex ECs need the complex pipeline's concatenate stage
-complex = _unported("complex", "A19c")
 
 # protocol registry: function names double as the config-facing names
 PROTOCOLS = {

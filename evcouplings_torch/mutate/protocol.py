@@ -1,14 +1,19 @@
 """
 Mutation-effect (EVmutation) stage protocols (port of
-evcouplings_tpu/mutate/protocol.py). The `standard` protocol is ported;
-`complex` needs the complex pipeline (ROADMAP A19c) and raises
-NotImplementedError. The interactive bokeh matrix plots are produced
-only when the optional bokeh package is installed; the static matplotlib
-plots need matplotlib, which is imported where they are drawn.
+evcouplings_tpu/mutate/protocol.py): `standard` for a monomer's model,
+`complex` for a complex's (epistatic, independent and inter-segment-only
+models over MultiSegmentCouplingsModel). The interactive bokeh matrix
+plots are produced only when the optional bokeh package is installed;
+the static matplotlib plots need matplotlib, which is imported where
+they are drawn.
 """
 
 import pandas as pd
 
+from evcouplings_torch.couplings.mapping import (
+    MultiSegmentCouplingsModel,
+    Segment,
+)
 from evcouplings_torch.couplings.model import CouplingsModel
 from evcouplings_torch.mutate.calculations import (
     predict_mutation_table,
@@ -160,10 +165,74 @@ def standard(**kwargs):
 
 
 def complex(**kwargs):
-    """Not ported yet (ROADMAP A19c): mutation effects for complexes."""
-    raise NotImplementedError(
-        "mutate protocol 'complex' needs the complex pipeline, which is "
-        "not ported yet (ROADMAP A19c)")
+    """Protocol: mutation-effect prediction for protein complexes
+    (epistatic + independent + inter-segment-only models)."""
+    check_required(
+        kwargs,
+        ["prefix", "model_file", "mutation_dataset_file", "segments"],
+    )
+    prefix = kwargs["prefix"]
+    outcfg = _begin_stage(kwargs)
+
+    segments = [Segment.from_list(s) for s in kwargs["segments"]]
+
+    epistatic = MultiSegmentCouplingsModel(
+        kwargs["model_file"], *segments
+    )
+    independent = epistatic.to_independent_model()
+    inter_only = epistatic.to_inter_segment_model()
+    tagged = [
+        ("epistatic", epistatic),
+        ("independent", independent),
+        ("inter_segment", inter_only),
+    ]
+
+    _plot_models(
+        [(epistatic, "Epistatic"), (independent, "Independent"),
+         (inter_only, "Inter_segment")],
+        prefix, outcfg,
+    )
+
+    singles = _single_mutant_table(
+        tagged, outcfg["mutation_matrix_file"]
+    )
+
+    segment_to_chain = {
+        seg.segment_id: seg.default_chain_name()
+        for seg in segments[:2]
+    }
+    _write_pymol_scripts(
+        singles, tagged, prefix, outcfg,
+        segment_to_chain_mapping=segment_to_chain,
+    )
+
+    dataset_file = kwargs["mutation_dataset_file"]
+    if dataset_file is not None:
+        verify_resources("Dataset file does not exist", dataset_file)
+        data = pd.read_csv(dataset_file, comment="#", sep=",")
+
+        if "segment" not in data.columns:
+            raise ValueError(
+                "Input mutation dataset file does not contain "
+                "a column called 'segment' to specify the "
+                "protein of origin for each mutation"
+            )
+
+        outcfg["mutation_dataset_predicted_file"] = (
+            prefix + "_dataset_predicted.csv"
+        )
+        # the third column is named "inter_segment" (not
+        # "prediction_inter_segment" as in the matrix file), as in the
+        # JAX package's dataset output
+        _score_dataset(
+            data,
+            [(epistatic, "prediction_epistatic"),
+             (independent, "prediction_independent"),
+             (inter_only, "inter_segment")],
+            outcfg["mutation_dataset_predicted_file"],
+        )
+
+    return outcfg
 
 
 PROTOCOLS = {

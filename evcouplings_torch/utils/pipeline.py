@@ -16,8 +16,9 @@ trace there (utils/tracing.device_trace).
 The monomer table runs all five stages through the port's protocols:
 align, couplings, compare, mutate and fold (as in the JAX package, the
 mutate stage follows compare and reuses compare's outcfg when compare is
-skipped). The protein_complex pipeline raises NotImplementedError naming
-ROADMAP A19c.
+skipped). The protein_complex table runs align_1 and align_2 (their
+outputs prefixed first_ and second_), concatenate, then the same four
+stages (the sample complex config selects their `complex` protocols).
 """
 
 import os
@@ -53,12 +54,15 @@ from evcouplings_torch.utils.tracing import (
 
 import evcouplings_torch.align.protocol as ap
 import evcouplings_torch.compare.protocol as cm
+import evcouplings_torch.complex.protocol as pp
 import evcouplings_torch.couplings.protocol as cp
 import evcouplings_torch.fold.protocol as fd
 import evcouplings_torch.mutate.protocol as mt
 
 
-# supported pipelines: list of (stage name, runner, output key prefix)
+# supported pipelines: list of (stage name, runner, output key prefix).
+# The complex pipeline swaps the single align stage for two prefixed ones
+# plus concatenation, then shares the monomer tail.
 _MONOMER_STAGES = [
     ("align", ap.run, None),
     ("couplings", cp.run, None),
@@ -69,6 +73,12 @@ _MONOMER_STAGES = [
 
 PIPELINES = {
     "protein_monomer": _MONOMER_STAGES,
+    "protein_complex": [
+        ("align_1", ap.run, "first_"),
+        ("align_2", ap.run, "second_"),
+        ("concatenate", pp.run, None),
+        *_MONOMER_STAGES[1:],
+    ],
 }
 
 
@@ -82,9 +92,6 @@ EXTENSION_DONE = ".done"
 def _resolve_pipeline(config):
     """The (stage, runner, key_prefix) list for config["pipeline"],
     rejecting unknown pipeline names."""
-    if config["pipeline"] == "protein_complex":
-        raise NotImplementedError(
-            "the protein_complex pipeline is not ported yet (ROADMAP A19c)")
     try:
         return PIPELINES[config["pipeline"]]
     except KeyError:

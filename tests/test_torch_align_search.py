@@ -385,7 +385,44 @@ def test_hmmsearch_result_needs_rf_columns(tmp_path, seq_and_db):
 
 
 def test_complex_protocol_names_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A19c"):
-        protocol.run(protocol="complex", prefix=str(tmp_path / "c"))
+    """The complex protocol (ROADMAP A19c) is ported: `existing` inside
+    it, then the genome-location table from seeded UniProt-to-EMBL and
+    ENA tables (tests/complex_fixtures.py), equal to the JAX package's
+    outputs byte for byte; with override_annotation_file, the annotation
+    table is the override's. An unknown inner or outer protocol raises."""
+    import complex_fixtures as cf
+
+    cf.write_monomers(str(tmp_path))
+    embl, ena = str(tmp_path / "embl.txt"), str(tmp_path / "ena.tsv")
+    kinds = cf.write_genome_tables(
+        embl, ena, ["a{}".format(k) for k in range(cf.N)],
+        ["b{}".format(k) for k in range(cf.N)])
+
+    def kwargs_for(override):
+        def settings(root):
+            return dict(
+                prefix=os.path.join(root, "c"), alignment_protocol="existing",
+                input_alignment=str(tmp_path / "m1.fasta"), sequence_id="T1",
+                first_index=None, extract_annotation=False,
+                override_annotation_file=override, seqid_filter=None,
+                hhfilter=None, minimum_sequence_coverage=50,
+                minimum_column_coverage=0, compute_num_effective_seqs=True,
+                theta=0.8, uniprot_to_embl_table=embl,
+                ena_genome_location_table=ena)
+        return settings
+
+    for override in (None, str(tmp_path / "anno1.csv")):
+        out = run_both(tmp_path / str(override is None), "complex",
+                       kwargs_for(override))
+        (got_root, got), (want_root, want) = out["torch"], out["jax"]
+        assert assert_same_outputs(got, want, got_root, want_root) >= 7
+        locations = pd.read_csv(got["genome_location_file"])
+        assert len(locations) == cf.N - len(kinds["missing"]) - len(
+            kinds["ambiguous"])
+        assert ("annotation_file" in got) == (override is not None)
+    with pytest.raises(InvalidParameterError, match="alignment protocol"):
+        protocol.run(protocol="complex", **dict(
+            kwargs_for(None)(str(tmp_path / "bad")),
+            alignment_protocol="nope"), device="cpu")
     with pytest.raises(InvalidParameterError):
         protocol.run(protocol="nope")

@@ -10,8 +10,9 @@ the Pymol script byte for byte, figures for existence. Then the
 branches: no hits, structures that fail to load; structures found by
 sequence search (by_alignment, jackhmmer and hmmbuild + hmmsearch, fake
 binaries from tests/search_fixtures.py), whose hit tables and per-hit
-mapping CSVs must equal the JAX package's too; and the complex protocol,
-which is not ported and raises naming ROADMAP A19c.
+mapping CSVs must equal the JAX package's too; and the complex protocol
+on the seeded target as a homodimer (tests/test_torch_complex.py holds
+it on heterodimers).
 """
 
 import os
@@ -307,17 +308,68 @@ def test_invalid_search_method_raises(search_inputs, tmp_path):
                                   {"protocol": "complex"}])
 def test_unported_parts_raise_naming_a19(search_inputs, tmp_path, edit):
     """ROADMAP A19 was split: the sequence search (by_alignment, A19a) is
-    ported and finds the seeded structures; the complex protocol (A19c)
-    still raises naming its item."""
+    ported and finds the seeded structures; so is the complex protocol
+    (A19c), run here on the seeded target as a homodimer (both segments
+    TARGET_SEQ/11-28), equal to the JAX package's artifacts."""
     if "by_alignment" in edit:
         out = protocol.run(**_search_kwargs(search_inputs, "jackhmmer")(
             str(tmp_path)), device="cpu")
         hits = pd.read_csv(out["pdb_structure_hits_file"])
         assert set(hits.pdb_id) == {"1aaa", "2bbb", "3ccc"}
         return
-    kwargs = _seeded_kwargs(search_inputs, **edit)(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A19c"):
-        protocol.run(**kwargs, device="cpu")
+    out = run_both(tmp_path, _homodimer_kwargs(search_inputs, tmp_path,
+                                               **edit))
+    (got_root, got), (want_root, want) = out["torch"], out["jax"]
+    assert assert_same_as_jax(got, want, got_root, want_root) >= 20
+    # both segments hit the same chains: every pair of chains of one
+    # structure is written, a chain with itself too (2bbb's four, 1aaa's)
+    names = {os.path.basename(f) for f in got["complex_remapped_pdb_files"]}
+    assert {"cpx_2bbb_A_1_B_2.pdb", "cpx_2bbb_B_2_A_1.pdb",
+            "cpx_1aaa_A_0_A_0.pdb"} <= names and len(names) == 5
+    inter = pd.read_csv(got["ec_compared_inter_file"])
+    assert len(inter) == 18 * 18 and inter.dist.notna().all()
+
+
+def _homodimer_kwargs(inputs, tmp_path, **overrides):
+    """compare `complex` with both segments on the seeded target: the
+    seeded ECs within segment A_1, seeded scores for every A_1-B_1 pair."""
+    rng = np.random.default_rng(17)
+    intra = pd.read_csv(inputs["ec_file"]).assign(segment_i="A_1",
+                                                  segment_j="A_1")
+    pairs = [(i, j) for i in range(11, 29) for j in range(11, 29)]
+    score = rng.random(len(pairs))
+    inter = pd.DataFrame({
+        "i": [p[0] for p in pairs], "A_i": "A", "segment_i": "A_1",
+        "j": [p[1] for p in pairs], "A_j": "C", "segment_j": "B_1",
+        "fn": score, "cn": score, "score": score, "probability": score})
+    ec_file = str(tmp_path / "complex_ECs.csv")
+    pd.concat([intra, inter]).sort_values("cn", ascending=False).to_csv(
+        ec_file, index=False)
+    positions = list(range(11, 29))
+    settings = dict(
+        ec_file=ec_file, min_sequence_distance=5,
+        pdb_mmtf_dir=inputs["structure_dir"], atom_filter=None,
+        distance_cutoff=5, raise_missing=False, scale_sizes=True,
+        segments=[[seg, "aa", "TARGET_SEQ", 11, 28, positions]
+                  for seg in ("A_1", "B_1")],
+        plot_probability_cutoffs=[0.9], boundaries="union",
+        plot_lowest_count=2, plot_highest_count=3, plot_increase=1,
+        draw_secondary_structure=False, by_alignment=False,
+        pdb_alignment_method="jackhmmer", alignment_min_overlap=20,
+        sifts_mapping_table=inputs["sifts_table"], sifts_sequence_db=None,
+        use_bitscores=True, **overrides)
+    for side in ("first", "second"):
+        settings.update({side + "_" + k: v for k, v in dict(
+            sequence_id="TARGET_SEQ", sequence_file=None,
+            target_sequence_file=inputs["target_seq_file"],
+            alignment_file=None, raw_focus_alignment_file=None,
+            compare_multimer=True, pdb_ids=None, max_num_hits=25,
+            max_num_structures=10, region=None, domain_threshold=0.5,
+            sequence_threshold=0.5).items()})
+
+    def kwargs_for(root):
+        return dict(settings, prefix=os.path.join(root, "cpx"))
+    return kwargs_for
 
 
 def test_no_device_without_a_card_raises(seeded_inputs, tmp_path,

@@ -3,7 +3,9 @@ against the JAX package's: the same job config (stages align and
 couplings) through execute_wrapped in both, then the runtime's own
 behavior: flag files, the final outcfg, the runtime table, skip/reuse,
 the archive, delete_outputs, the stages and protocols that are not
-ported yet, and a job that names no device on a machine without a card.
+ported yet, the protein_complex table (its jobs are in
+tests/test_torch_complex.py), and a job that names no device on a
+machine without a card.
 Then the four-stage monomer job (align, couplings, compare, mutate)
 against seeded structures (tests/compare_fixtures.py) through both
 packages.
@@ -219,8 +221,28 @@ SEARCH_EDITS = {("compare", "by_alignment", True),
 def test_unported_parts_name_their_item(tmp_path, stages, edit, item):
     """ROADMAP A19 was split. The sequence search, the identity filter
     and compare by_alignment (A19a) are ported: with fake binaries the job
-    runs, and its outcfg names their outputs. The protein_complex pipeline
-    (A19c) and the sql tracker (A19d) still raise naming their item."""
+    runs, and its outcfg names their outputs. So is the protein_complex
+    pipeline (A19c): its stages are align_1, align_2 and concatenate
+    before the monomer tail (a monomer stage list is refused), and the
+    alignment stages of a complex job run. The sql tracker (A19d) still
+    raises naming its item."""
+    if edit == ("pipeline", None, "protein_complex"):
+        import complex_fixtures as cf
+
+        inputs = cf.write_job_inputs(str(tmp_path / "in"), bcif.write_bcif)
+        config = cf.job_config(str(tmp_path / "out" / "job"), inputs,
+                               stages=stages, device="cpu")
+        with pytest.raises(InvalidParameterError, match="align_1"):
+            pipeline.execute_wrapped(**config)
+        config["stages"] = ["align_1", "align_2", "concatenate"]
+        state = pipeline.execute_wrapped(**config)
+        assert state["focus_sequence"] == "T1_T2/1-20"
+        assert [s[0] for s in state["segments"]] == ["A_1", "B_1"]
+        for key in ("first_genome_location_file",
+                    "second_genome_location_file", "alignment_file",
+                    "concatentation_statistics_file"):
+            assert os.path.isfile(state[key]), key
+        return
     if edit in SEARCH_EDITS:
         config, files = _search_config(tmp_path, stages=stages)
         section, key, value = edit
@@ -245,6 +267,24 @@ def test_unported_parts_name_their_item(tmp_path, stages, edit, item):
             config[section] = dict(config[section] or {}, **{key: value})
     with pytest.raises(NotImplementedError, match="ROADMAP " + item):
         pipeline.execute_wrapped(**config)
+
+
+def test_complex_table_matches_jax():
+    """The protein_complex table: the JAX package's stages and key
+    prefixes, each stage bound to the port's protocol module."""
+    from evcouplings_torch.align import protocol as align
+    from evcouplings_torch.complex import protocol as concatenate
+
+    table = pipeline.PIPELINES["protein_complex"]
+    assert [(s, k) for s, _, k in table] == [
+        (s, k) for s, _, k in jax_pipeline.PIPELINES["protein_complex"]]
+    runners = dict((s, r) for s, r, _ in table)
+    assert runners["align_1"] is runners["align_2"] is align.run
+    assert runners["concatenate"] is concatenate.run
+    monomer = dict((s, r) for s, r, _ in pipeline.PIPELINES[
+        "protein_monomer"])
+    assert all(runners[s] is monomer[s]
+               for s in ("couplings", "compare", "mutate", "fold"))
 
 
 def test_monomer_table_keeps_every_stage():

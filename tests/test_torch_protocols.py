@@ -315,28 +315,93 @@ def _search_protocol(name):
                 **extra))
         (got_root, got), (want_root, want) = out["torch"], out["jax"]
         assert assert_same_outputs(got, want, got_root, want_root) >= 5
-        return got
-    run.ported = True
+        assert got["focus_mode"] is True
+        assert got["segments"][0][3:5] == [11, 28]
     return run
 
 
+def _complex_inputs(tmp):
+    """The TestComplexCouplingsEndToEnd monomers concatenated by the JAX
+    package (best_hit), and a 5-iteration couplings `complex` fit of the
+    concatenation by the JAX package."""
+    import complex_fixtures as cf
+    from evcouplings_tpu.complex import protocol as jax_concatenate
+    from test_complex import MODIFY_KWARGS
+
+    cf.write_monomers(str(tmp))
+    seg = ["aa", "aa", "T", 1, cf.L, list(range(1, cf.L + 1))]
+    concat = jax_concatenate.run(
+        protocol="best_hit", prefix=str(tmp / "concat" / "cc"),
+        first_alignment_file=str(tmp / "m1.fasta"),
+        second_alignment_file=str(tmp / "m2.fasta"),
+        first_focus_sequence="T1/1-10", second_focus_sequence="T2/1-10",
+        first_focus_mode=True, second_focus_mode=True,
+        first_region_start=1, second_region_start=1,
+        first_segments=[seg], second_segments=[seg],
+        first_identities_file=str(tmp / "id1.csv"),
+        second_identities_file=str(tmp / "id2.csv"),
+        first_annotation_file=str(tmp / "anno1.csv"),
+        second_annotation_file=str(tmp / "anno2.csv"),
+        use_best_reciprocal=False, paralog_identity_threshold=0.95,
+        **MODIFY_KWARGS)
+    stage_in = dict(alignment_file=concat["alignment_file"],
+                    focus_sequence=concat["focus_sequence"],
+                    segments=concat["segments"], frequencies_file=None,
+                    **{**COUPLINGS_KWARGS, "iterations": 5,
+                       "scoring_model": "skewnormal",
+                       "use_all_ecs_for_scoring": False})
+    return concat, stage_in
+
+
+def _complex_protocol(stage):
+    """couplings or mutate `complex` (ROADMAP A19c) through both packages
+    on the same concatenation (mutate on the JAX fit's model): equal
+    outcfg keys, inter-segment outputs in both."""
+    def run(tmp):
+        concat, stage_in = _complex_inputs(tmp)
+        if stage == "mutate":
+            model_file = jax_couplings.run(
+                protocol="complex", prefix=str(tmp / "fit" / "job"),
+                **stage_in)["model_file"]
+        out = {}
+        for tag, (_, cp, mt, extra) in SIDES.items():
+            prefix = str(tmp / tag / stage / "job")
+            if stage == "couplings":
+                out[tag] = cp.run(protocol="complex", prefix=prefix,
+                                  **stage_in, **extra)
+            else:
+                out[tag] = mt.run(protocol="complex", prefix=prefix,
+                                  model_file=model_file,
+                                  segments=concat["segments"],
+                                  mutation_dataset_file=None)
+        got, want = out["torch"], out["jax"]
+        assert set(got) == set(want)
+        if stage == "couplings":
+            inter = pd.read_csv(got["inter_ec_file"])
+            assert set(inter.segment_i) == {"A_1"}
+            assert set(inter.segment_j) == {"B_1"}
+        else:
+            table = pd.read_csv(got["mutation_matrix_file"])
+            assert "prediction_inter_segment" in table.columns
+            assert set(table.segment) == {"A_1", "B_1"}
+    return run
+
+
+# the ids are the cases' ids from when the complex cases were lambdas
+# that expected NotImplementedError
 @pytest.mark.parametrize("run,item", [
     (_search_protocol("standard"), "A19"),
     (_search_protocol("hmmbuild_and_search"), "A19"),
-    (lambda tmp: couplings.run(protocol="complex"), "A19"),
-    (lambda tmp: mutate.run(protocol="complex"), "A19"),
-])
+    (_complex_protocol("couplings"), "A19"),
+    (_complex_protocol("mutate"), "A19"),
+], ids=["run-A19_0", "run-A19_1", "<lambda>-A19_0", "<lambda>-A19_1"])
 def test_unported_protocols_name_their_item(tmp_path, run, item):
-    """ROADMAP A19 was split: the search protocols (A19a) are ported and
-    run on fake binaries equal to the JAX package's; the complex
-    protocols (A19c) still raise naming their item."""
-    if getattr(run, "ported", False):
-        got = run(tmp_path)
-        assert got["focus_mode"] is True
-        assert got["segments"][0][3:5] == [11, 28]
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP " + item):
-        run(tmp_path)
+    """ROADMAP A19 (`item`) was split, and its protocols are ported: the
+    search protocols (A19a) run on fake binaries equal to the JAX
+    package's; couplings and mutate `complex` (A19c) run on a
+    concatenated alignment in both packages (their numbers are held to
+    the JAX package's in tests/test_torch_complex.py)."""
+    run(tmp_path)
 
 
 def test_external_identity_filter_raises(chains, tmp_path):

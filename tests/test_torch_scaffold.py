@@ -32,6 +32,11 @@ PORT_MODULES = [
     "evcouplings_torch.compare.pdb",
     "evcouplings_torch.compare.protocol",
     "evcouplings_torch.compare.sifts",
+    "evcouplings_torch.complex",
+    "evcouplings_torch.complex.alignment",
+    "evcouplings_torch.complex.distance",
+    "evcouplings_torch.complex.protocol",
+    "evcouplings_torch.complex.similarity",
     "evcouplings_torch.convert",
     "evcouplings_torch.couplings.fitter",
     "evcouplings_torch.couplings.mapping",
@@ -92,8 +97,6 @@ PORT_MODULES = [
 QUEUED_NAMES = {
     "evcouplings_torch.couplings.pairs": {           # A19d
         "logreg_classifier_from_dict", "logreg_classifier_to_dict"},
-    "evcouplings_torch.couplings.protocol": {        # A19c
-        "SCORING_MODELS", "complex_probability"},
     "evcouplings_torch.ops.mean_field": {            # A18
         "invert_covariance_sharded"},
     "evcouplings_torch.utils.helpers": {             # A19d
