@@ -35,7 +35,15 @@ pipeline (two monomer alignments, align `complex` with local EMBL and ENA
 tables, their concatenation, couplings, compare, mutate and fold
 `complex`/`complex_dock`): small jobs card against host with both
 concatenation protocols (11a), then the full-width job with the sample
-complex config's settings (11b). Every
+complex config's settings (11b). Phase 12 drives the sharded fits over
+torch.distributed on the one card: NCCL at world size 1 in this process
+(12a: the parity and production fits on a one-rank mesh bitwise equal to
+the fits without one, the couplings stage with fit_devices 1), three gloo
+ranks that this script starts as `chip_smoke.py --phase12-worker ...`
+(12b: K1 split into three tile ranges, the fits, the collective profile,
+the sharded float64 inversion, the couplings stage with fit_devices 3,
+all-reduce times) and a (2, 2) mesh of four (12c: the asymmetric fit).
+Every
 phase raises on a mismatch; nothing is caught, except that a machine
 without matplotlib cannot draw the mutate stage's plots (nor the
 complex concatenation's distance plot), which the script then names
@@ -2063,6 +2071,532 @@ def phase11b(tmp, rng, not_produced, n=16384):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sharded fits over torch.distributed (A18). The machine has
+# one card: NCCL runs at world size 1 in this process (12a), and several
+# ranks share the card over gloo in workers this script starts as
+# `chip_smoke.py --phase12-worker KIND RANK WORLD INIT_FILE DIR` (12b: 3
+# ranks, 12c: a (2, 2) mesh of 4). Nothing across cards is measured, and no
+# scaling is claimed.
+# ---------------------------------------------------------------------------
+
+# seconds a collective may wait for the other ranks, and a set of spawned
+# ranks may run, before the phase fails
+PHASE12_COLLECTIVE_S = 120
+PHASE12_RUN_S = 300
+# the 3-rank fits against one process (PERF.md, written before the first
+# run): parity at the golden gate, fx at rtol 1e-5; production (Adam in
+# bfloat16, where a one-ulp change of a gradient near zero may flip an
+# element's first steps) by the relative Frobenius norm of the difference;
+# the asymmetric (2, 2) fit at the JAX package's own tolerance; the
+# inversion's relative max error
+PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
+FX_RTOL = 1e-5
+PRODUCTION_REL = 1e-3
+ASYM_TOL = dict(rtol=1e-3, atol=2e-5)
+INVERSE_REL = 1e-8
+INVERSE_D = 3200
+# all-reduce payloads timed over the 3 gloo ranks (float32 elements; the
+# last is the full-width gradient payload)
+COST_PAYLOADS = (10 ** 4, 10 ** 6, 3360 * 3456 + 1)
+
+
+def phase12_probe():
+    import torch
+    import torch.distributed as dist
+
+    log("phase 12 probe: torch.distributed nccl {}, gloo {}, {} CUDA "
+        "device(s)".format(dist.is_nccl_available(), dist.is_gloo_available(),
+                           torch.cuda.device_count()))
+
+
+def phase12_alignment(tmp):
+    """Phase 12's fit data: the phase-5 synthetic (N=16384 + the focus row,
+    L=160, q=21) drawn from a generator of its own, seeded as phase 5's,
+    so that phase 12 sees the same data whether it runs alone or after the
+    phases that draw from phase 5's generator first."""
+    rng = np.random.default_rng(SEED)
+    codes = synthetic_codes(rng, 16384, 160, 21, families=256, mutate=0.15,
+                            gap_rows=0.1, missing_rows=0.0)
+    a2m = os.path.join(tmp, "phase12.a2m")
+    write_a2m(a2m, codes)
+    return a2m
+
+
+def phase12_task(a2m, focus_seq, stage_incfg, lambda_J):
+    """The inputs every rank of phase 12 shares: the fit codes of `a2m`
+    (phase12_alignment's: N=16385 with the focus row, L=160) and their K1
+    weights, the fits' settings and the couplings stage's config (phase
+    6b's parity job's)."""
+    from evcouplings_torch.couplings.fitter import prepare_alignment
+    from evcouplings_torch.ops.weights import num_cluster_members
+    from evcouplings_torch.utils.config import read_config_file
+
+    codes = prepare_alignment(a2m, focus_seq=focus_seq)["codes"]
+    weights = 1.0 / num_cluster_members(codes, 0.8).cpu().numpy()
+    stage = read_config_file(stage_incfg)
+    task = {
+        "parity": dict(solver="lbfgs", dtype="float32", precision="highest",
+                       max_iter=5, lambda_J=lambda_J, block_size=512),
+        # run_plm's default block for this N on 3 ranks (one per rank)
+        "production": dict(solver="adam", dtype="bfloat16",
+                           precision="default", max_iter=20,
+                           lambda_J=lambda_J, block_size=5632),
+        "asym": dict(solver="lbfgs", dtype="float32", precision="highest",
+                     max_iter=5, conv_tol=0.0, lambda_J=lambda_J,
+                     block_size=1024),
+        "stage": dict(stage, reuse_ecs=False),
+        "seed": SEED + 12,
+    }
+    return codes, weights, task
+
+
+def phase12_start(kind, world, directory, codes, weights, task):
+    """Start `world` ranks of sub-phase `kind` (gloo, file:// rendezvous in
+    `directory`); phase12_wait collects them."""
+    os.makedirs(directory)
+    np.savez(os.path.join(directory, "inputs.npz"), codes=codes,
+             weights=weights)
+    with open(os.path.join(directory, "task.json"), "w") as f:
+        json.dump(task, f)
+    init = os.path.join(directory, "rendezvous")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase12-worker", kind,
+         str(r), str(world), init, directory],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+    return kind, procs, directory, time.perf_counter()
+
+
+def phase12_wait(started):
+    """The ranks' results, once all have ended; a rank that fails, or is
+    still running after PHASE12_RUN_S seconds (then every rank is killed),
+    fails the phase with its output."""
+    import pickle
+
+    kind, procs, directory, t0 = started
+    outputs = []
+    for p in procs:
+        left = max(1.0, PHASE12_RUN_S - (time.perf_counter() - t0))
+        try:
+            out, _ = p.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, _ = p.communicate()
+            out += b"\n(killed after %d s)" % PHASE12_RUN_S
+        outputs.append(out.decode(errors="replace"))
+    for r, (p, out) in enumerate(zip(procs, outputs)):
+        assert p.returncode == 0, "phase {} rank {} exit {}:\n{}".format(
+            kind, r, p.returncode, out[-6000:])
+    results = []
+    for r in range(len(procs)):
+        with open(os.path.join(directory, "rank{}.pkl".format(r)),
+                  "rb") as f:
+            results.append(pickle.load(f))
+    log("phase {}: {} ranks ended after {:.1f} s".format(
+        kind, len(procs), time.perf_counter() - t0))
+    return results
+
+
+def _digest(fit):
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(fit.J_ij).tobytes()
+                          + np.ascontiguousarray(fit.h_i).tobytes()
+                          ).hexdigest()
+
+
+def _fit_record(fit, table, secs, launches, keep):
+    rec = {"digest": _digest(fit), "secs": secs, "launches": launches,
+           "fx": np.array([r["fx"] for r in table])}
+    if keep:
+        rec.update(J=fit.J_ij.astype(np.float32), h=fit.h_i)
+    return rec
+
+
+def phase12_worker(kind, rank, world, init_file, directory):
+    """One rank of 12b or 12c: a gloo process group on the card. Pickles
+    its results to DIRECTORY/rank<RANK>.pkl."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    from evcouplings_torch import parallel
+
+    rank, world = int(rank), int(world)
+    parallel.distributed_initialize(
+        "file://" + init_file, world, rank, backend="gloo",
+        timeout=PHASE12_COLLECTIVE_S)
+    with open(os.path.join(directory, "task.json")) as f:
+        task = json.load(f)
+    data = np.load(os.path.join(directory, "inputs.npz"))
+    run = phase12b_rank if kind == "12b" else phase12c_rank
+    out = run(task, data["codes"], data["weights"], directory)
+    with open(os.path.join(directory, "rank{}.pkl".format(rank)), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase12b_rank(task, codes, weights, directory):
+    """One of 3 gloo ranks on the card: K1 split into three tile ranges,
+    the parity and production fits on a 3-rank mesh, the collective
+    profile of an evaluation at two N, the sharded float64 inversion, the
+    couplings stage with fit_devices 3, and all-reduce times."""
+    import torch
+
+    from evcouplings_torch import parallel
+    from evcouplings_torch.couplings import protocol as couplings
+    from evcouplings_torch.ops.mean_field import (
+        invert_covariance, invert_covariance_sharded,
+    )
+    from evcouplings_torch.ops.plm import (
+        PlmConfig, fit_plm, make_plm_value_and_grad,
+    )
+    from evcouplings_torch.parallel import comm_accounting as ca
+
+    mesh = parallel.make_mesh(device="cuda")
+    rank = mesh.rank
+    out = {}
+    (counts, secs), launches = counted(lambda: timed(
+        lambda: parallel.num_cluster_members_sharded(codes, 0.8, mesh)))
+    out["k1"] = {"secs": secs, "launches": launches}
+    if rank == 0:
+        out["k1"]["counts"] = counts.cpu().numpy().astype(np.int64)
+    for mode in ("parity", "production"):
+        table = []
+        cfg = PlmConfig(**task[mode])
+        (fit, secs), launches = counted(lambda: timed(lambda: fit_plm(
+            codes, weights, 21, cfg, mesh=mesh, callback=table.append)))
+        out[mode] = _fit_record(fit, table, secs, launches, rank == 0)
+
+    # the collectives of one evaluation, at two N
+    L, q = codes.shape[1], 21
+    vg = make_plm_value_and_grad(L, q, PlmConfig(block_size=512), mesh=mesh)
+    params = {"J": torch.zeros((L * q, L * q), device="cuda"),
+              "h": torch.zeros((L, q), device="cuda")}
+    for n in (len(codes), len(codes) // 2):
+        rows, _ = parallel.shard_rows(codes[:n].astype(np.int8), mesh,
+                                      pad_multiple=512)
+        w_loc, _ = parallel.shard_rows(weights[:n], mesh, pad_multiple=512)
+        first = rows.shape[0] * mesh.index("data")
+        rows[first + torch.arange(rows.shape[0], device="cuda") >= n] = -1
+        ops, summary = ca.collective_profile(vg, params, rows, w_loc.float())
+        out["profile", n] = dict(summary, ops=[(o.op, o.axis, o.bytes)
+                                               for o in ops])
+
+    # the float64 inversion, C = A A^T + D I from a seeded generator (the
+    # same on every rank of the card)
+    D = INVERSE_D
+    gen = torch.Generator(device="cuda").manual_seed(task["seed"])
+    A = torch.randn((D, D), generator=gen, device="cuda", dtype=torch.float64)
+    C = A @ A.T + D * torch.eye(D, device="cuda", dtype=torch.float64)
+    X, secs = timed(lambda: invert_covariance_sharded(C, mesh))
+    out["inverse"] = {"secs": secs}
+    if rank == 0:
+        ref, ref_secs = timed(lambda: invert_covariance(C))
+        out["inverse"].update(
+            ref_secs=ref_secs,
+            rel_err=float((X - ref).abs().max() / ref.abs().max()))
+    del A, C, X
+
+    # the couplings stage on the three ranks (rank 0 writes)
+    stage = dict(task["stage"], fit_devices=3,
+                 prefix=os.path.join(directory, "stage", "job"))
+    (outcfg, secs), launches = counted(lambda: timed(
+        lambda: couplings.run(**stage)))
+    out["stage"] = {"outcfg": outcfg, "secs": secs, "launches": launches}
+
+    out["cost"] = ca.measure_all_reduce_cost([mesh.size], COST_PAYLOADS,
+                                             reps=5, device="cuda")
+    return out
+
+
+def phase12c_rank(task, codes, weights, directory):
+    """One of 4 gloo ranks on the card, a (2, 2) mesh: the asymmetric fit
+    (per-site LBFGS) with rows and sites split."""
+    from evcouplings_torch import parallel
+    from evcouplings_torch.ops.plm import PlmConfig
+    from evcouplings_torch.ops.plm_sites import fit_plm_asym
+
+    mesh = parallel.make_mesh_2d(2, 2, device="cuda")
+    table = []
+    (fit, secs), launches = counted(lambda: timed(lambda: fit_plm_asym(
+        codes, weights, 21, PlmConfig(**task["asym"]), mesh=mesh,
+        callback=table.append)))
+    return {"asym": _fit_record(fit, table, secs, launches, mesh.rank == 0),
+            "coords": mesh.coords}
+
+
+def _rel_fro(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _check_fit(what, got, want, tol=None, rel=None):
+    """A rank's fit against the one-process fit: within `tol`
+    (assert_allclose on J_ij and h_i) or `rel` (relative Frobenius norm of
+    the difference), fx at FX_RTOL; prints the measured differences."""
+    errs = {k: float(np.max(np.abs(got[k] - want[k]))) for k in ("J", "h")}
+    rels = {k: _rel_fro(got[k], want[k]) for k in ("J", "h")}
+    fx = float(np.max(np.abs(got["fx"] - want["fx"]) / np.abs(want["fx"])))
+    log("{}: max |dJ_ij| {:.3e}, max |dh_i| {:.3e}, relative Frobenius "
+        "{:.3e} / {:.3e}, fx max rel {:.3e}".format(
+            what, errs["J"], errs["h"], rels["J"], rels["h"], fx))
+    if tol is not None:
+        for k in ("J", "h"):
+            np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
+    if rel is not None:
+        assert max(rels.values()) <= rel, rels
+    assert fx <= FX_RTOL, fx
+    return {"max_abs": errs, "rel_fro": rels, "fx_rel": fx}
+
+
+def phase12a(tmp, codes, weights, task, refs, full_state):
+    """NCCL at world size 1 in this process: the parity and production
+    fits on a one-rank mesh, bitwise equal to the same fits without one
+    (K2 runs: "auto" keeps it on a mesh of one), and the couplings stage
+    with fit_devices 1, whose EC files equal phase 6b's parity job's."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from evcouplings_torch import parallel
+    from evcouplings_torch.couplings import protocol as couplings
+    from evcouplings_torch.ops.plm import PlmConfig, fit_plm
+
+    init = os.path.join(tmp, "phase12a_rendezvous")
+    dist.init_process_group("nccl", init_method="file://" + init,
+                            world_size=1, rank=0, timeout=datetime.timedelta(
+                                seconds=PHASE12_COLLECTIVE_S))
+    try:
+        def path():
+            mesh = parallel.make_mesh(device="cuda")
+            fits = {}
+            for mode in ("parity", "production"):
+                table = []
+                fit, secs = timed(lambda: fit_plm(
+                    codes, weights, 21, PlmConfig(**task[mode]), mesh=mesh,
+                    callback=table.append))
+                fits[mode] = _fit_record(fit, table, secs, None, True)
+            stage = dict(task["stage"], fit_devices=1,
+                         prefix=os.path.join(tmp, "phase12a", "job"))
+            outcfg, secs = timed(lambda: couplings.run(**stage))
+            return fits, outcfg, secs
+
+        (fits, outcfg, stage_secs), launches = counted(path)
+    finally:
+        dist.destroy_process_group()
+    for mode in ("parity", "production"):
+        got, want = fits[mode], refs[mode]
+        assert got["digest"] == want["digest"], mode
+        assert np.array_equal(got["fx"], want["fx"]), mode
+    for key in ("raw_ec_file", "ec_file"):
+        with open(outcfg[key]) as a, open(full_state[key]) as b:
+            assert a.read() == b.read(), key
+    assert launches["K1"] > 0 and launches["K2"] > 0 and launches["K4"] > 0
+    log("phase 12a NCCL world size 1: parity fit {:.2f} s and production "
+        "fit {:.2f} s on a one-rank mesh bitwise equal to the fits without "
+        "one ({:.2f} s, {:.2f} s); couplings stage with fit_devices 1 "
+        "{:.2f} s, its raw EC and CouplingScores files equal phase 6b's; "
+        "launches {}".format(fits["parity"]["secs"],
+                             fits["production"]["secs"],
+                             refs["parity"]["secs"],
+                             refs["production"]["secs"], stage_secs,
+                             json.dumps(launches)))
+    return launches
+
+
+def phase12_references(codes, weights, task):
+    """The one-process fits on the card that 12a and 12b are held to:
+    parity, production with K2 ("auto" on the card), production without
+    it (as on a mesh of several ranks)."""
+    from dataclasses import replace
+
+    from evcouplings_torch.ops.plm import PlmConfig, fit_plm
+
+    refs = {}
+    for name, mode, fused in (("parity", "parity", "auto"),
+                              ("production", "production", "auto"),
+                              ("unfused", "production", "off")):
+        table = []
+        cfg = replace(PlmConfig(**task[mode]), fused_update=fused)
+        fit, secs = timed(lambda: fit_plm(codes, weights, 21, cfg,
+                                          callback=table.append,
+                                          device="cuda"))
+        refs[name] = _fit_record(fit, table, secs, None, True)
+    return refs
+
+
+def tile_pairs(n, begin, count, tile=128):
+    """Row pairs (i <= j) that K1's tiles [begin, begin + count) cover for
+    n rows (a diagonal tile its triangle, the others their rectangle)."""
+    tiles = -(-n // tile)
+    rows = [min(tile, n - t * tile) for t in range(tiles)]
+    pairs, k = 0, 0
+    for ti in range(tiles):
+        for tj in range(ti, tiles):
+            if begin <= k < begin + count:
+                pairs += (rows[ti] * (rows[ti] + 1) // 2 if ti == tj
+                          else rows[ti] * rows[tj])
+            k += 1
+    return pairs
+
+
+def phase12_k1_ranges(codes, parts=3):
+    """K1's three tile ranges launched in turn in this process (the ranks
+    of 12b share the card, so their own times overlap): each range's ms and
+    its operations bound, the pairs it covers x 2 L q int8 ops."""
+    import torch
+
+    from evcouplings_torch.kernels import reweight as k_reweight
+    from evcouplings_torch.ops.weights import _identity_count_threshold
+
+    n, L = codes.shape
+    q = 21
+    dev_codes = torch.as_tensor(codes, device="cuda")
+    padded = k_reweight.pad_codes(dev_codes)
+    k = _identity_count_threshold(L, 0.8)
+    ms, bound = [], []
+    for r in range(parts):
+        tiles = k_reweight.tile_range(n, r, parts)
+        ms.append(cuda_ms(lambda: k_reweight.launch(
+            padded, int(dev_codes.max()) + 1, k, tiles), 10))
+        bound.append(2 * tile_pairs(n, *tiles) * L * q / INT8_TC_OPS_PER_S
+                     * 1e3)
+    whole = cuda_ms(lambda: k_reweight.launch(
+        padded, int(dev_codes.max()) + 1, k), 10)
+    log("phase 12 K1 N={} in {} tile ranges, launched in turn: {} ms "
+        "(bounds {} ms, operations), whole launch {:.4f} ms".format(
+            n, parts, ", ".join("{:.4f}".format(m) for m in ms),
+            ", ".join("{:.4f}".format(b) for b in bound), whole))
+    return ms, bound
+
+
+def phase12(tmp, a2m, focus_seq, full_state, stage_incfg, lambda_J, rows):
+    """Phase 12 (see the section's comment) on the fit data of `a2m`.
+    Returns the kernel launches of each sub-phase."""
+    import torch
+
+    from evcouplings_torch.kernels import reweight as k_reweight
+    from evcouplings_torch.ops.weights import (
+        _identity_count_threshold, _num_cluster_members_plain,
+    )
+
+    phase12_probe()
+    codes, weights, task = phase12_task(a2m, focus_seq, stage_incfg,
+                                        lambda_J)
+    root = os.path.join(tmp, "phase12")
+    started = phase12_start("12b", 3, os.path.join(root, "12b"), codes,
+                            weights, task)
+    refs = phase12_references(codes, weights, task)
+    launches = {"12a": phase12a(tmp, codes, weights, task, refs,
+                                full_state)}
+    ranks = phase12_wait(started)
+    # the 12c ranks start while this process checks 12b and times K1's
+    # ranges (their own work starts after their import)
+    started = phase12_start("12c", 4, os.path.join(root, "12c"), codes,
+                            weights, task)
+
+    # 12b: K1 split, counts exactly equal to one whole launch and to the
+    # plain version
+    dev_codes = torch.as_tensor(codes, device="cuda")
+    k = _identity_count_threshold(codes.shape[1], 0.8)
+    whole = k_reweight.neighbor_counts(dev_codes, k).cpu().numpy()
+    plain = _num_cluster_members_plain(dev_codes, k).cpu().numpy()
+    got = ranks[0]["k1"]["counts"]
+    assert np.array_equal(got, whole) and np.array_equal(got, plain)
+    k1_ranges = [r["k1"]["launches"]["K1"] for r in ranks]
+    assert k1_ranges == [1, 1, 1], k1_ranges
+    ms, bound = phase12_k1_ranges(codes)
+    rows["K1"].update(range_launches=sum(k1_ranges), range_ms=ms,
+                      range_bound_ms=bound)
+    log("phase 12b K1 split over 3 ranks (one range launch each, {:.3f} s "
+        "on the shared card): counts exactly equal to one whole launch and "
+        "to the plain version".format(max(r["k1"]["secs"] for r in ranks)))
+
+    # the fits: every rank bitwise equal to rank 0, rank 0 within the
+    # tolerances of the one-process fits
+    for mode, ref, kw in (("parity", "parity", dict(tol=PARITY_TOL)),
+                          ("production", "unfused",
+                           dict(rel=PRODUCTION_REL))):
+        digests = {r[mode]["digest"] for r in ranks}
+        assert len(digests) == 1, (mode, digests)
+        _check_fit("phase 12b {} fit on 3 ranks ({:.2f} s; one process "
+                   "{:.2f} s) against one process".format(
+                       mode, ranks[0][mode]["secs"], refs[ref]["secs"]),
+                   ranks[0][mode], refs[ref], **kw)
+        assert ranks[0][mode]["launches"]["K2"] == 0
+    assert ranks[0]["parity"]["launches"]["K4"] > 0
+
+    from evcouplings_torch.parallel.comm_accounting import (
+        expected_gradient_payload,
+    )
+
+    payload = expected_gradient_payload(codes.shape[1], 21)["bytes"]
+    for n in (len(codes), len(codes) // 2):
+        for r in ranks:
+            prof = r["profile", n]
+            assert prof["all_reduce_count"] == prof["count"] == 1, prof
+            assert prof["bytes"] == payload, (prof["bytes"], payload)
+    log("phase 12b collective profile of one evaluation at N={} and {}: one "
+        "all-reduce of {} bytes (expected_gradient_payload) on every "
+        "rank".format(len(codes), len(codes) // 2, payload))
+
+    inv = ranks[0]["inverse"]
+    assert inv["rel_err"] <= INVERSE_REL, inv
+    log("phase 12b inversion D={} float64: sharded over 3 ranks {:.1f} ms "
+        "per rank (shared card), one process {:.1f} ms, max rel error "
+        "{:.2e}".format(INVERSE_D, inv["secs"] * 1e3,
+                        inv["ref_secs"] * 1e3, inv["rel_err"]))
+
+    import pandas as pd
+
+    outcfg = ranks[0]["stage"]["outcfg"]
+    assert all(r["stage"]["outcfg"] == outcfg for r in ranks)
+    longrange = pd.read_csv(outcfg["ec_longrange_file"])
+    top8 = set(zip(longrange.i.values[:8], longrange.j.values[:8]))
+    assert top8 == {(i + 1, j + 1) for i, j in PLANTED}, sorted(top8)
+    log("phase 12b couplings stage with fit_devices 3: {:.2f} s, the same "
+        "outcfg on every rank, planted pairs at top-8 precision 1.0; "
+        "launches by rank {}".format(
+            ranks[0]["stage"]["secs"],
+            json.dumps([r["stage"]["launches"] for r in ranks])))
+    cost = ranks[0]["cost"][3]
+    log("phase 12b gloo all-reduce over 3 ranks on one card (host copies "
+        "and loopback, not a link between cards): {}".format(", ".join(
+            "{} floats {:.3f} ms".format(p, s * 1e3)
+            for p, s in sorted(cost.items()))))
+    launches["12b"] = {key: sum(r[part]["launches"][key] for r in ranks
+                                for part in ("k1", "parity", "production",
+                                             "stage"))
+                       for key in kernel_counts()}
+
+    # 12c: the (2, 2) mesh's asymmetric fit against one process
+    from evcouplings_torch.ops.plm import PlmConfig
+    from evcouplings_torch.ops.plm_sites import fit_plm_asym
+
+    table = []
+    fit, secs = timed(lambda: fit_plm_asym(
+        codes, weights, 21, PlmConfig(**task["asym"]),
+        callback=table.append, device="cuda"))
+    ref = _fit_record(fit, table, secs, None, True)
+    ranks = phase12_wait(started)
+    assert [r["coords"] for r in ranks] == [
+        {"data": d, "model": m} for d in (0, 1) for m in (0, 1)]
+    assert len({r["asym"]["digest"] for r in ranks}) == 1
+    _check_fit("phase 12c per-site LBFGS on a (2, 2) mesh ({:.2f} s; one "
+               "process {:.2f} s) against one process".format(
+                   ranks[0]["asym"]["secs"], secs),
+               ranks[0]["asym"], ref, tol=ASYM_TOL)
+    launches["12c"] = {key: sum(r["asym"]["launches"][key] for r in ranks)
+                       for key in kernel_counts()}
+    log("phase 12 launches by sub-phase: {}".format(json.dumps(launches)))
+    return launches
+
+
 def run_job(config):
     """One pipeline job through execute_wrapped, its kernel launches
     counted from zero, and its final state; every file the final outcfg
@@ -2579,6 +3113,11 @@ def main():
         prefix = os.path.join(tmp, "full_" + mode, "job")
         state, counts, secs = run_job(pipeline_config(
             prefix, full, "TARGET", align_kw, couplings_kw))
+        if mode == "parity":
+            # phase 12 runs this job's couplings stage again, sharded
+            full_state = state
+            stage_incfg = (insert_dir(prefix, "couplings")
+                           + "_couplings.incfg")
         for k in counts:
             pipeline_launches[k] += counts[k]
         stage_secs = runtime_seconds(state)
@@ -2696,7 +3235,18 @@ def main():
         "s".format(json.dumps(phase11), time.perf_counter() - t11b,
                    time.perf_counter() - t11))
 
+    # ---- phase 12: the sharded fits over torch.distributed: NCCL at world
+    # size 1 in this process (12a), 3 gloo ranks (12b) and a (2, 2) mesh of
+    # 4 gloo ranks (12c) sharing the card
+    t12 = time.perf_counter()
+    phase12_launches = phase12(tmp, phase12_alignment(tmp),
+                               common["focus_seq"], full_state, stage_incfg,
+                               common["lambda_J"], rows)
+    log("phase 12 took {:.1f} s".format(time.perf_counter() - t12))
+
     for k, row in rows.items():
+        row["distributed_launches"] = {
+            sub: counts[k] for sub, counts in phase12_launches.items()}
         row["launches"] = launches[k]
         row["pipeline_launches"] = pipeline_launches[k]
         row["compare_job_launches"] = phase8_launches[k]
@@ -2714,4 +3264,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase12-worker"]:
+        sys.exit(phase12_worker(*sys.argv[2:]))
     sys.exit(main())

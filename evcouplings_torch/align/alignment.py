@@ -630,20 +630,25 @@ class Alignment:
     def _device(self, device):
         return self.device if device is None else device
 
-    def set_weights(self, identity_threshold=0.8, device=None):
+    def set_weights(self, identity_threshold=0.8, device=None, mesh=None):
         """Compute clustering-based sequence weights (K1 on the card).
 
         weight(s) = 1 / #{s': seqid(s, s') >= identity_threshold}; sets
         self.weights / self.num_cluster_members, resets cached
         frequencies. Gap positions participate in the identity count.
+        With a mesh (evcouplings_torch.parallel) the count is split over
+        its ranks, each of which calls set_weights
+        (parallel.num_cluster_members_sharded).
         """
         from evcouplings_torch.ops.weights import num_cluster_members
+        from evcouplings_torch.parallel import num_cluster_members_sharded
 
         self._ensure_mapped_matrix()
-        self.num_cluster_members = num_cluster_members(
-            self.matrix_mapped, identity_threshold,
-            device=self._device(device),
-        ).cpu().numpy()
+        counts = (num_cluster_members(self.matrix_mapped, identity_threshold,
+                                      device=self._device(device))
+                  if mesh is None else num_cluster_members_sharded(
+                      self.matrix_mapped, identity_threshold, mesh))
+        self.num_cluster_members = counts.cpu().numpy()
         self.weights = 1.0 / self.num_cluster_members
 
         self._frequencies = None

@@ -1,6 +1,6 @@
 """
 In-process replacement for the external `plmc` binary (port of
-evcouplings_tpu/couplings/fitter.py, on one device).
+evcouplings_tpu/couplings/fitter.py).
 
 run_plm reads an alignment, reweights its sequences (K1 on the card),
 fits the Potts model by pseudolikelihood (ops/plm.py), computes weighted
@@ -23,6 +23,7 @@ from collections import namedtuple
 import numpy as np
 import pandas as pd
 
+from evcouplings_torch import parallel
 from evcouplings_torch._device import resolve_device
 from evcouplings_torch.align.alignment import (
     ALPHABET_PROTEIN,
@@ -149,13 +150,14 @@ def _fmt_bytes(b):
             else "{:.1f} MiB".format(b / 2 ** 20))
 
 
-def _symmetric_block_size(compute_dtype, n_fit):
+def _symmetric_block_size(compute_dtype, n_fit, n_data_shards=1):
     """Default block size of the symmetric fit: 512 in parity mode; in
     bfloat16 mode the largest multiple of 512 up to 8192 that divides the
-    512-padded row count (the two-phase layout wants large blocks)."""
+    512-padded row count of one "data" rank (the two-phase layout wants
+    large blocks)."""
     if compute_dtype != "bfloat16":
         return 512
-    k = max(1, -(-n_fit // 512))
+    k = max(1, -(-n_fit // (512 * n_data_shards)))
     return 512 * max(d for d in range(1, 17) if k % d == 0)
 
 
@@ -174,10 +176,17 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
     plmc-compatible artifacts.
 
     Same signature as the JAX package's run_plm, plus `device` (None:
-    the CUDA device; raises without one, pass "cpu" to run on the host)
-    and `fused_update` (PlmConfig.fused_update of the Adam solver).
-    `cpu` and `binary` are accepted and ignored; a mesh raises
-    NotImplementedError (ROADMAP A18).
+    the mesh's device, else the CUDA device; raises without one, pass
+    "cpu" to run on the host) and `fused_update` (PlmConfig.fused_update
+    of the Adam solver). `cpu` and `binary` are accepted and ignored.
+
+    mesh: an evcouplings_torch.parallel mesh, on which every rank calls
+    run_plm with the same arguments: the reweighting is split over its
+    "data" ranks (parallel.num_cluster_members_sharded), rows shard over
+    "data" in the fit and sites over "model" in the asymmetric one; the
+    default block size and the memory routing are sized per rank. The
+    mesh's first rank writes the files, the others wait for it, and every
+    rank returns the same result.
 
     parametrization: "symmetric" (plmc semantics, ops/plm.py),
     "asymmetric" (independent per-site regressions symmetrized after the
@@ -199,12 +208,9 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
     Returns PlmResult.
     """
     del cpu, binary
-    device = resolve_device(device)
+    device = resolve_device(
+        mesh.device if device is None and mesh is not None else device)
     verify_resources("Alignment file does not exist", alignment)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (row-sharded multi-device fits) is not ported yet "
-            "(ROADMAP A18)")
 
     create_prefix_folders(couplings_file)
     if param_file is not None:
@@ -231,9 +237,15 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
             "(focus_seq=...) to select the uppercase match "
             "columns.".format(alignment))
 
-    # O(N^2 L) reweighting (gaps participate in identity): K1 on the card
-    cluster_sizes = num_cluster_members(
-        device_codes(codes, device), theta).cpu().numpy()
+    # O(N^2 L) reweighting (gaps participate in identity): K1 on the card,
+    # split over the "data" ranks on a mesh
+    codes_d = device_codes(codes, device)
+    if mesh is None:
+        cluster_sizes = num_cluster_members(codes_d, theta)
+    else:
+        cluster_sizes = parallel.num_cluster_members_sharded(
+            codes_d, theta, mesh)
+    cluster_sizes = cluster_sizes.cpu().numpy()
     weights = scale / cluster_sizes
     n_eff = float(weights.sum())
 
@@ -256,13 +268,19 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
         fit_weights = np.pad(weights, (0, fit_codes.shape[0] - N))
     N_fit = fit_codes.shape[0]
 
+    # rows shard over "data", sites over "model"
+    shape = {} if mesh is None else mesh.shape
+    n_data_shards = shape.get(parallel.DATA_AXIS, 1)
+    n_model_shards = shape.get(parallel.MODEL_AXIS, 1)
+
     # each parametrization has its own default block size, resolved
     # before the preflight so the estimate sees the fit's grad layout:
     # the symmetric fit's (512 in parity mode, large blocks for the
     # two-phase layout in bfloat16), and 1024 for the asymmetric fit,
     # whose carried accumulator is small
     if block_size is None:
-        sym_block = _symmetric_block_size(compute_dtype, N_fit)
+        sym_block = _symmetric_block_size(compute_dtype, N_fit,
+                                          n_data_shards)
         asym_block = 1024
     else:
         sym_block = asym_block = int(block_size)
@@ -279,12 +297,14 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
     sym_default_solver = "fista" if wants_exact_group else "lbfgs"
     budget = ops_plm.device_hbm_budget(device)
 
-    # preflight: the symmetric fit while its estimate fits 90% of the
-    # device; "auto" routes past that to the asymmetric fit
+    # preflight: the symmetric fit while its estimate per rank fits 90% of
+    # the device; "auto" routes past that to the asymmetric fit (a "model"
+    # axis replicates the symmetric fit's rows, so only "data" divides it)
     if parametrization in ("auto", "symmetric"):
         sym_cfg = PlmConfig(solver=solver or sym_default_solver,
                             dtype=compute_dtype, block_size=sym_block)
-        est = ops_plm.estimate_fit_hbm_bytes(N_fit, L_fit, q, sym_cfg)
+        est = ops_plm.estimate_fit_hbm_bytes(
+            N_fit, L_fit, q, sym_cfg, n_data_shards=n_data_shards)
         if est > 0.9 * budget:
             if parametrization == "symmetric":
                 raise MemoryError(
@@ -301,14 +321,16 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
     if asym:
         asym_cfg = PlmConfig(solver=solver or "adam", dtype=compute_dtype,
                              block_size=asym_block)
-        est = ops_plm.estimate_fit_hbm_bytes(N_fit, L_fit, q, asym_cfg,
-                                             "asymmetric")
+        est = ops_plm.estimate_fit_hbm_bytes(
+            N_fit, L_fit, q, asym_cfg, "asymmetric",
+            n_data_shards=n_data_shards, n_model_shards=n_model_shards)
         if est > budget:
             raise MemoryError(
-                "Asymmetric PLM fit at L={} (q={}) needs an estimated {} of "
-                "device memory but only {} is available (sharding sites "
-                "over devices is ROADMAP A18).".format(
-                    L, q, _fmt_bytes(est), _fmt_bytes(budget)))
+                "Asymmetric PLM fit at L={} (q={}) needs an estimated {} per "
+                "rank but only {} is available; shard sites across more "
+                "ranks ('model_shards', currently {}).".format(
+                    L, q, _fmt_bytes(est), _fmt_bytes(budget),
+                    n_model_shards))
         # no proximal solver on this path: refuse instead of quietly
         # fitting the smoothed penalty
         if wants_exact_group:
@@ -341,7 +363,7 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
         fused_update=fused_update,
     )
     fit = (fit_plm_asym if asym else fit_plm)(
-        fit_codes, fit_weights, q, cfg, callback=callback,
+        fit_codes, fit_weights, q, cfg, mesh=mesh, callback=callback,
         checkpoint_file=checkpoint_file,
         checkpoint_every=checkpoint_every, device=device,
     )
@@ -351,7 +373,6 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
     fit_h_i = fit.h_i[:L]
 
     # weighted frequencies (no pseudocount) for the .model file
-    codes_d = device_codes(codes, device)
     f_i = frequencies(codes_d, weights, q)
     f_ij = pair_frequencies(codes_d, weights, q, f_i)
 
@@ -381,11 +402,16 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
         num_iter=fit.num_iter,
         N_eff=n_eff,
     )
-    if param_file is not None:
-        model.to_file(param_file, precision="float32", file_format="plmc_v2")
-
-    write_raw_ec_file(
-        couplings_file, prep["index_list"], prep["target_seq"], fn, cn)
+    # one writer on a mesh (the ranks hold the same result); the others
+    # return once the files are there
+    if mesh is None or mesh.is_writer:
+        if param_file is not None:
+            model.to_file(param_file, precision="float32",
+                          file_format="plmc_v2")
+        write_raw_ec_file(
+            couplings_file, prep["index_list"], prep["target_seq"], fn, cn)
+    if mesh is not None:
+        parallel.barrier(mesh)
 
     if fit.converged:
         status = "converged"

@@ -102,21 +102,25 @@ class MeanFieldDCA:
 
         device=True inverts C in float32 (the JAX package's device path);
         the default inverts it in float64. Either runs on the alignment's
-        device. A mesh raises NotImplementedError (ROADMAP A18).
+        device. mesh (an evcouplings_torch.parallel mesh on which every
+        rank calls fit): the reweighting is split over its "data" ranks
+        (parallel.num_cluster_members_sharded) and the float64 inversion's
+        solves too (ops/mean_field.invert_covariance_sharded); the
+        alignment's device should be the mesh's.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (the sharded covariance inversion) is not ported yet "
-                "(ROADMAP A18)")
         self._reset()
-        self.alignment.set_weights(identity_threshold=theta)
+        self.alignment.set_weights(identity_threshold=theta, mesh=mesh)
         self.regularize_frequencies(pseudo_count=pseudo_count)
         self.regularize_pair_frequencies(pseudo_count=pseudo_count)
 
         self.compute_covariance_matrix()
-        self.covariance_matrix_inv = (
-            _mf.invert_covariance_device(self.covariance_matrix) if device
-            else _mf.invert_covariance(self.covariance_matrix))
+        if mesh is not None:
+            inv = _mf.invert_covariance_sharded(self.covariance_matrix, mesh)
+        elif device:
+            inv = _mf.invert_covariance_device(self.covariance_matrix)
+        else:
+            inv = _mf.invert_covariance(self.covariance_matrix)
+        self.covariance_matrix_inv = inv
 
         J_ij = self.reshape_invC_to_4d()
         h_i = _mf.fields_from_couplings(J_ij, self.regularized_frequencies,

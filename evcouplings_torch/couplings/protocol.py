@@ -11,8 +11,17 @@ ported with every fit route of couplings/fitter.run_plm (symmetric or
 asymmetric parametrization, exact group-L1, mid-fit checkpoints),
 `complex` (the same fit on a concatenated two-protein alignment, its
 mixture model fit separately to the intra- and inter-protein ECs), and
-`mean_field` (mean-field DCA, couplings/mean_field.py); fits over more
-than one device raise NotImplementedError (ROADMAP A18).
+`mean_field` (mean-field DCA, couplings/mean_field.py).
+
+fit_devices ("all" or an int) and model_shards run the fit on a mesh of
+the ranks of the torch.distributed process group (one process per rank,
+started with parallel.distributed_initialize or torchrun; every rank runs
+the stage with the same config): rows shard over fit_devices / model_shards
+"data" ranks, and the asymmetric fit's sites over model_shards "model"
+ranks (the mean-field stage splits its reweighting and its inversion's
+solves over fit_devices ranks). Rank 0 runs the stage's host work and
+writes its files; the other ranks take part in the fit, then receive rank
+0's outcfg, so every rank returns the same one.
 """
 
 import os
@@ -37,6 +46,13 @@ from evcouplings_torch.couplings import fitter as ct
 from evcouplings_torch.couplings import mapping, pairs
 from evcouplings_torch.couplings.mean_field import MeanFieldDCA
 from evcouplings_torch.couplings.model import CouplingsModel
+from evcouplings_torch.parallel import (
+    broadcast_object,
+    make_mesh,
+    make_mesh_2d,
+    process_count,
+    process_index,
+)
 from evcouplings_torch.utils.config import (
     InvalidParameterError,
     check_required,
@@ -67,14 +83,11 @@ SCORING_MODELS = (
 )
 
 
-def _resolve_fit_device_count(fit_devices, device):
+def _resolve_fit_device_count(fit_devices):
     """Resolve the fit_devices config value ("all", an int, or None =
-    all available) to a validated device count: the CUDA devices for a
-    CUDA fit, one for a fit on the CPU."""
-    import torch
-
-    n_avail = (torch.cuda.device_count() if device.type == "cuda"
-               else 1)
+    all available) to a validated device count: the ranks of the
+    initialized torch.distributed process group, 1 without one."""
+    n_avail = process_count()
     if fit_devices in (None, "all"):
         return n_avail
     try:
@@ -86,10 +99,76 @@ def _resolve_fit_device_count(fit_devices, device):
         )
     if not 0 < n_total <= n_avail:
         raise InvalidParameterError(
-            "fit_devices must be in [1, {}] (got {})".format(
+            "fit_devices must be in [1, {}] (got {}): it counts the ranks "
+            "of the process group, one process per rank, started with "
+            "parallel.distributed_initialize or torchrun".format(
                 n_avail, fit_devices)
         )
     return n_total
+
+
+def _fit_mesh(fit_devices, model_shards, parametrization, device):
+    """The fit's mesh from the fit_devices / model_shards settings, and the
+    parametrization they imply (model_shards > 1 resolves "auto" to
+    asymmetric). Every rank of the process group calls it (the mesh's
+    process groups are made on all of them)."""
+    if model_shards > 1:
+        # site sharding only exists on the asymmetric path
+        if parametrization == "auto":
+            parametrization = "asymmetric"
+        elif parametrization != "asymmetric":
+            raise InvalidParameterError(
+                "model_shards > 1 requires parametrization: asymmetric")
+    n_total = _resolve_fit_device_count(fit_devices)
+    if n_total % model_shards:
+        raise InvalidParameterError(
+            "fit_devices ({}) must be divisible by model_shards ({})".format(
+                n_total, model_shards))
+    if parametrization == "asymmetric":
+        mesh = make_mesh_2d(n_total // model_shards, model_shards,
+                            device=device)
+    elif parametrization == "auto":
+        # a ("data", "model"=1) mesh serves both outcomes of run_plm's
+        # routing: the symmetric fit shards rows over "data", the
+        # asymmetric one uses both axes
+        mesh = make_mesh_2d(n_total, 1, device=device)
+    else:
+        mesh = make_mesh(n_total, device=device)
+    return mesh, parametrization
+
+
+def _run_on_ranks(body, take_part, kwargs):
+    """Run a stage in a run of one or several processes.
+
+    One process: body(**kwargs). Several: rank 0 runs body (the whole
+    stage, its files included); every other rank runs take_part(**kwargs),
+    its share of the stage's collectives (None: the stage uses no mesh,
+    and the rank does nothing), then receives rank 0's outcfg, or raises
+    when rank 0 failed."""
+    if process_count() == 1:
+        return body(**kwargs)
+    if process_index() == 0:
+        try:
+            outcfg = body(**kwargs)
+        except BaseException as exc:
+            broadcast_object(("failed", repr(exc)))
+            raise
+        broadcast_object(("ok", outcfg))
+        return outcfg
+    if take_part is not None:
+        take_part(**kwargs)
+    status, outcfg = broadcast_object()
+    if status != "ok":
+        raise RuntimeError("rank 0 failed the stage: {}".format(outcfg))
+    return outcfg
+
+
+def _plm_takes_part(kwargs):
+    """infer_plmc where the config asks for a mesh, else None."""
+    if (kwargs.get("fit_devices") is None
+            and int(kwargs.get("model_shards") or 1) == 1):
+        return None
+    return infer_plmc
 
 
 def _ec_stage_outcfg(prefix, kwargs, model_file):
@@ -156,7 +235,9 @@ def _scaled_lambda_j(kwargs, alphabet):
 def infer_plmc(**kwargs):
     """EC-inference core of the standard protocol: run (or reuse) the
     PLM fit on the job's `device` (None: the CUDA device) and load the
-    raw EC table.
+    raw EC table. With fit_devices / model_shards every rank of the
+    process group calls it: the mesh's ranks run the fit, its first rank
+    writes the files; a rank outside the mesh returns ecs None.
 
     Returns (outcfg, ecs, segments).
     """
@@ -255,16 +336,20 @@ def infer_plmc(**kwargs):
             "pad_rows_to": kwargs.get("pad_rows"),
         }
 
-        # device-mesh knobs (fit_devices: "all" or an int; model_shards):
-        # a fit on one device runs as usual, anything larger raises
+        # device-mesh knobs: fit_devices ("all" or an int) shards the
+        # rows over ranks of the process group on a "data" axis;
+        # model_shards also shards the asymmetric fit's sites on a "model"
+        # axis. Absent: one device, no mesh.
         fit_devices = kwargs.get("fit_devices")
         model_shards = int(kwargs.get("model_shards") or 1)
+        mesh = None
         if fit_devices is not None or model_shards > 1:
-            n_total = _resolve_fit_device_count(fit_devices, device)
-            if n_total > 1 or model_shards > 1:
-                raise NotImplementedError(
-                    "fit_devices > 1 / model_shards > 1 (multi-device "
-                    "fits) are not ported yet (ROADMAP A18)")
+            mesh, parametrization = _fit_mesh(
+                fit_devices, model_shards, parametrization, device)
+            fitter_kwargs.update(mesh=mesh, parametrization=parametrization)
+            if mesh.coords is None:
+                # this rank is not in the fit's mesh
+                return outcfg, None, segments
 
         if precision_mode == "production":
             fitter_kwargs.update(
@@ -313,19 +398,20 @@ def infer_plmc(**kwargs):
             **fitter_kwargs,
         )
 
-        # a completed fit obsoletes any crash snapshot under this
-        # prefix — including one left by an earlier run that had
-        # checkpointing on while the current run does not (a stale
-        # snapshot must never survive to poison a future fit)
-        if valid_file(fit_checkpoint):
-            os.remove(fit_checkpoint)
-
         iter_table_file = prefix + "_iteration_table.csv"
-        plmc_result.iteration_table.to_csv(iter_table_file)
+        if mesh is None or mesh.is_writer:
+            # a completed fit obsoletes any crash snapshot under this
+            # prefix — including one left by an earlier run that had
+            # checkpointing on while the current run does not (a stale
+            # snapshot must never survive to poison a future fit)
+            if valid_file(fit_checkpoint):
+                os.remove(fit_checkpoint)
+            plmc_result.iteration_table.to_csv(iter_table_file)
 
         plmc_result = dict(plmc_result._asdict())
         plmc_result["iteration_table"] = iter_table_file
-        write_config_file(plm_outcfg_file, plmc_result)
+        if mesh is None or mesh.is_writer:
+            write_config_file(plm_outcfg_file, plmc_result)
 
     # fit statistics -> stage outputs (outcfg key: result field)
     for out_key, res_key in (
@@ -405,12 +491,16 @@ def rescore_cn_score_ecs(ecs, segments, outcfg, kwargs, score="cn"):
 
 
 def standard(**kwargs):
-    """Protocol: infer monomer ECs with the port's PLM fitter."""
+    """Protocol: infer monomer ECs with the port's PLM fitter (on a mesh
+    of the process group's ranks with fit_devices / model_shards)."""
     check_required(
         kwargs,
         ["prefix", "min_sequence_distance", "theta", "frequencies_file"],
     )
+    return _run_on_ranks(_standard, _plm_takes_part(kwargs), kwargs)
 
+
+def _standard(**kwargs):
     prefix = kwargs["prefix"]
 
     outcfg, ecs, segments = infer_plmc(**kwargs)
@@ -531,7 +621,10 @@ def complex(**kwargs):
          "use_all_ecs_for_scoring"],
     )
     kwargs = {"focus_mode": True, **kwargs}
+    return _run_on_ranks(_complex, _plm_takes_part(kwargs), kwargs)
 
+
+def _complex(**kwargs):
     prefix = kwargs["prefix"]
 
     outcfg, ecs, segments = infer_plmc(**kwargs)
@@ -574,7 +667,9 @@ def mean_field(**kwargs):
     """Protocol: infer ECs by mean-field DCA (focus mode only), on the
     job's `device` (None: the CUDA device). The covariance matrix is
     inverted in float64 there; `device_inversion: True` inverts it in
-    float32 (the JAX package's device path)."""
+    float32 (the JAX package's device path). fit_devices ("all" or an
+    int) splits the reweighting and the float64 inversion's solves over
+    that many ranks of the process group."""
     check_required(kwargs, [
         "prefix", "alignment_file", "segments", "focus_mode",
         "focus_sequence", "theta", "pseudo_count", "alphabet",
@@ -583,30 +678,41 @@ def mean_field(**kwargs):
     if not kwargs["focus_mode"]:
         raise InvalidParameterError(
             "For now, mean field DCA can only be run in focus mode.")
+    take_part = (None if kwargs.get("fit_devices") is None
+                 else _mean_field_fit)
+    return _run_on_ranks(_mean_field, take_part, kwargs)
 
+
+def _mean_field_fit(**kwargs):
+    """The stage's mean-field model (None on a rank outside the fit's
+    mesh); with fit_devices every rank of the process group calls it."""
     device = resolve_device(kwargs.get("device"))
+    mesh = None
+    fit_devices = kwargs.get("fit_devices")
+    if fit_devices is not None:
+        mesh = make_mesh(_resolve_fit_device_count(fit_devices),
+                         device=device)
+        if mesh.coords is None:
+            return None
+    input_alignment = Alignment.from_path(
+        kwargs["alignment_file"], "fasta",
+        alphabet=_resolve_alphabet(kwargs["alphabet"]), device=device)
+    return MeanFieldDCA(input_alignment).fit(
+        theta=kwargs["theta"], pseudo_count=kwargs["pseudo_count"],
+        device=bool(kwargs.get("device_inversion", False)), mesh=mesh,
+    )
+
+
+def _mean_field(**kwargs):
+    resolve_device(kwargs.get("device"))
     prefix = kwargs["prefix"]
     outcfg = _ec_stage_outcfg(prefix, kwargs, prefix + ".model")
 
-    alignment_file = kwargs["alignment_file"]
-    verify_resources("Input alignment does not exist", alignment_file)
+    verify_resources("Input alignment does not exist",
+                     kwargs["alignment_file"])
     create_prefix_folders(prefix)
     segments = _segments_from_config(kwargs)
-    alphabet = _resolve_alphabet(kwargs["alphabet"])
-    # one device runs the fit; the sharded inversion over more is A18
-    fit_devices = kwargs.get("fit_devices")
-    if (fit_devices is not None
-            and _resolve_fit_device_count(fit_devices, device) > 1):
-        raise NotImplementedError(
-            "fit_devices > 1 (the column-sharded covariance inversion) is "
-            "not ported yet (ROADMAP A18)")
-
-    input_alignment = Alignment.from_path(
-        alignment_file, "fasta", alphabet=alphabet, device=device)
-    model = MeanFieldDCA(input_alignment).fit(
-        theta=kwargs["theta"], pseudo_count=kwargs["pseudo_count"],
-        device=bool(kwargs.get("device_inversion", False)),
-    )
+    model = _mean_field_fit(**kwargs)
 
     model.to_raw_ec_file(outcfg["raw_ec_file"])
     if outcfg["model_file"] is not None:

@@ -43,6 +43,12 @@
 //   - Epilogue: threshold at min_count, mask i >= n and j >= n, reduce the
 //     0/1 tile along rows (quad shuffles) and columns (shuffles, then
 //     shared-memory atomics), and add to counts with int32 atomics.
+//   - Range launch: evc_neighbor_counts_range launches only the tiles
+//     [block_begin, block_begin + block_count) of the row-by-row numbering,
+//     with the same epilogue into a zeroed full-length counts vector. R
+//     launches over R ranges that cover every tile add up, by an int32 sum,
+//     to the counts of one whole launch (the ranks of a sharded run each
+//     launch one range and all-reduce their counts).
 //
 // What bounds it: int8 tensor-core operations, N(N+1)/2 pairs x 2 x 32 S L
 // (S = slabs per site) at 1979 TOP/s; the codes (N Lp bytes) fit in L2.
@@ -130,14 +136,14 @@ __device__ __forceinline__ long long row_start(long long t, long long T) {
 __global__ void __launch_bounds__(kThreads, 2)
 neighbor_counts_kernel(const int8_t* __restrict__ codes, int n, int Lp,
                        int slabs, int min_count, int tiles,
-                       int* __restrict__ counts) {
+                       long long block_begin, int* __restrict__ counts) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x;
 
   // upper-triangle tile of this block
   const long long T = tiles;
-  const long long bid = blockIdx.x;
+  const long long bid = block_begin + blockIdx.x;
   long long ti = static_cast<long long>(
       ((2.0 * T + 1.0) -
        sqrt((2.0 * T + 1.0) * (2.0 * T + 1.0) - 8.0 * bid)) / 2.0);
@@ -276,27 +282,42 @@ extern "C" {
 
 // codes: (n, Lp) int8, row-major, contiguous, 16-byte aligned, Lp a
 // multiple of 32 (padded with -1); symbols 0 .. q-1 and negative codes
-// that match nothing; q <= 127. counts: (n,) int32, zeroed. Returns the
-// cudaError_t of the launch.
-int evc_neighbor_counts(const void* codes, int n, int Lp, int q,
-                        int min_count, void* counts, void* stream) {
+// that match nothing; q <= 127. counts: (n,) int32, zeroed. Launches the
+// upper-triangle tiles [block_begin, block_begin + block_count) of the
+// ceil(n / 128) x ceil(n / 128) tile grid, numbered row by row (no launch
+// for an empty range). Returns the cudaError_t of the launch.
+int evc_neighbor_counts_range(const void* codes, int n, int Lp, int q,
+                              int min_count, long long block_begin,
+                              long long block_count, void* counts,
+                              void* stream) {
   if (n <= 0 || Lp <= 0 || Lp % kChunk || q < 0 || q > 127 ||
       reinterpret_cast<uintptr_t>(codes) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const int slabs = q > 0 ? (q + 31) / 32 : 1;
   const long long tiles = (n + kTile - 1) / kTile;
   const long long blocks = tiles * (tiles + 1) / 2;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  if (block_begin < 0 || block_count < 0 ||
+      block_begin + block_count > blocks || block_count > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (block_count == 0) return static_cast<int>(cudaSuccess);
   const int smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaFuncSetAttribute(
       neighbor_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  neighbor_counts_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  neighbor_counts_kernel<<<static_cast<unsigned>(block_count), kThreads,
+                           smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(codes), n, Lp, slabs, min_count,
-      static_cast<int>(tiles), static_cast<int*>(counts));
+      static_cast<int>(tiles), block_begin, static_cast<int*>(counts));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The whole upper triangle: every tile in one launch.
+int evc_neighbor_counts(const void* codes, int n, int Lp, int q,
+                        int min_count, void* counts, void* stream) {
+  const long long tiles = n > 0 ? (n + kTile - 1) / kTile : 0;
+  return evc_neighbor_counts_range(codes, n, Lp, q, min_count, 0,
+                                   tiles * (tiles + 1) / 2, counts, stream);
 }
 
 const char* evc_error_string(int err) {

@@ -64,6 +64,32 @@ def invert_covariance_device(C):
     return invert_covariance(C, torch.float32)
 
 
+def invert_covariance_sharded(C, mesh, axis="data"):
+    """-inv(C) in float64 with the solves split over the ranks of a mesh
+    axis: C is replicated (every rank passes it), each rank LU-factorizes
+    its copy once (cuSOLVER on the card, through torch.linalg) and solves
+    only its own block of identity columns, built on its device; the
+    blocks come back by one all-reduce of a zeroed (D, D_pad) float64
+    buffer (exact: each entry has one nonzero term), D_pad = D padded to
+    a multiple of the axis size. The factorization is not split, so the
+    gain is the solves' time, not memory. Returns (D, D) float64 on the
+    mesh's device, equal on every rank."""
+    from evcouplings_torch.parallel import all_reduce
+
+    C = _t(C, mesh.device)
+    D = C.shape[0]
+    n = mesh.shape[axis]
+    blk = -(-D // n)
+    col0 = mesh.index(axis) * blk
+    LU, pivots = torch.linalg.lu_factor(C)
+    rows = torch.arange(D, device=C.device)[:, None]
+    cols = torch.arange(col0, col0 + blk, device=C.device)[None, :]
+    X = torch.zeros((D, blk * n), dtype=F64, device=C.device)
+    X[:, col0:col0 + blk] = -torch.linalg.lu_solve(
+        LU, pivots, (rows == cols).to(F64))
+    return all_reduce(X, mesh, axis)[:, :D]
+
+
 def reshape_invC_to_4d(inv_cov_matrix, L, num_symbols):
     """Un-flatten the (L(q-1))^2 matrix to (L, L, q, q), zero-padding the
     dropped last symbol."""

@@ -41,6 +41,16 @@ Solvers: "lbfgs" (ops/lbfgs.py), "adam" (the optax.adam formula; with
 fused_update="on", and "auto" on a CUDA device, the epilogue of each step
 is K2, the Triton kernel behind ops/plm_update.fused_adam_update), and
 "fista" (exact group-L1 by proximal steps, _make_fista_step).
+
+Mesh
+----
+With a mesh (evcouplings_torch.parallel), every rank holds its block of
+the rows (padded to block_size x the "data" axis size), the parameters and
+the whole solver state. Each value+gradient evaluation sums (nll, dJh)
+over the "data" ranks by exactly one all-reduce of one packed float buffer
+(a loss-only evaluation: one all-reduce of the nll), so every rank runs
+the same solver arithmetic on the same numbers, K4 included, and the
+ranks' parameters stay bitwise equal.
 """
 
 import os
@@ -50,6 +60,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from evcouplings_torch import parallel
 from evcouplings_torch._device import matmul_precision, resolve_device
 from evcouplings_torch.kernels.seqdot import sequential_dot, sequential_dots
 from evcouplings_torch.ops.encode import one_hot, pad_rows, unflatten_J
@@ -341,18 +352,12 @@ def estimate_fit_hbm_bytes(n, l, q, cfg, parametrization="symmetric",
     return int(total * 1.25)
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (row-sharded multi-device fits) is not ported yet "
-            "(ROADMAP A18)")
-
-
 def make_plm_nll_vg(L, q, cfg, mesh=None):
     """Build nll_vg(J_aug, codes, weights, oh_aug) -> (nll, dJh): the
     data term and its raw closed-form gradient product (dJ_eff in
-    columns :Lq, dh in column Lq)."""
-    _no_mesh(mesh)
+    columns :Lq, dh in column Lq). With a mesh, codes/weights/oh_aug are
+    this rank's rows and the result is summed over the "data" ranks (one
+    all-reduce)."""
     dtype = _compute_dtype(cfg.dtype)
     acc = _acc_dtype(dtype)
     lq_aug = _augmented_width(L * q)
@@ -362,10 +367,13 @@ def make_plm_nll_vg(L, q, cfg, mesh=None):
         if layout == "two_phase":
             if oh_aug is None:
                 oh_aug = build_augmented_onehot(codes, q, dtype)
-            return _local_vg_two_phase(J_aug, codes, weights, oh_aug, L, q,
-                                       cfg.block_size, acc)
-        return _local_vg_carried(J_aug, codes, weights, L, q,
-                                 cfg.block_size, acc)
+            nll, dJh = _local_vg_two_phase(J_aug, codes, weights, oh_aug, L,
+                                           q, cfg.block_size, acc)
+        else:
+            nll, dJh = _local_vg_carried(J_aug, codes, weights, L, q,
+                                         cfg.block_size, acc)
+        dJh, nll = parallel.all_reduce_many([dJh, nll], mesh)
+        return nll, dJh
 
     return nll_vg
 
@@ -434,8 +442,9 @@ def make_plm_loss(L, q, cfg, mesh=None, symmetric_params=False):
     it once per trial step).
 
     params: {"J": (Lq, Lq), "h": (L, q)}; the sums run in the f32-or-wider
-    accumulation dtype whatever the compute dtype."""
-    _no_mesh(mesh)
+    accumulation dtype whatever the compute dtype. With a mesh, codes and
+    weights are this rank's rows and the NLL is summed over the "data"
+    ranks (one all-reduce of one number)."""
     dtype = _compute_dtype(cfg.dtype)
     acc = _acc_dtype(dtype)
     lq = L * q
@@ -464,6 +473,7 @@ def make_plm_loss(L, q, cfg, mesh=None, symmetric_params=False):
             J_eff = 0.5 * (P_c + P_c.T) * mask
         h_c = params["h"].to(dtype)
         value = local_nll(J_eff, h_c.reshape(lq), codes, weights)
+        value = parallel.all_reduce(value.reshape(1), mesh)[0]
         reg = (cfg.lambda_h * torch.sum(h_c.to(acc) ** 2)
                + cfg.lambda_J * 0.5 * torch.sum(J_eff.to(acc) ** 2))
         if cfg.lambda_group > 0:
@@ -480,8 +490,10 @@ def _resolve_fused_update(cfg, mesh, master_dtype,
     """Whether the Adam steps run their epilogue through K2.
 
     "on" requires the adam solver, lambda_group == 0, float32 masters
-    and no mesh; on a CUDA device it launches K2, on the CPU it runs
-    K2's plain version. "auto" resolves to on where those hold and the
+    and no mesh or a mesh of one rank (K2 updates the replicated arrays
+    outside the sharded gradient, as the JAX package's Pallas epilogue
+    does); on a CUDA device it launches K2, on the CPU it runs K2's plain
+    version. "auto" resolves to on where those hold and the
     fit runs on a CUDA device: on an NVIDIA H100 80GB HBM3 at its 700 W
     limit a production step (N=16384, L=160) took 3.19-3.70 ms fused
     against 4.11-4.60 ms unfused, fused faster in every pair
@@ -491,19 +503,22 @@ def _resolve_fused_update(cfg, mesh, master_dtype,
     if cfg.fused_update == "off":
         return False
     eligible = (cfg.solver == "adam" and cfg.lambda_group == 0
-                and master_dtype == torch.float32 and mesh is None)
+                and master_dtype == torch.float32
+                and (mesh is None or mesh.size == 1))
     if cfg.fused_update == "on":
         if not eligible:
             raise ValueError(
                 "fused_update='on' requires the adam solver, "
-                "lambda_group=0, float32 master parameters, and no mesh")
+                "lambda_group=0, float32 master parameters, and a "
+                "single-rank (or absent) mesh")
         return True
     if cfg.fused_update != "auto":
         raise ValueError("Unknown fused_update: {}".format(cfg.fused_update))
     return eligible and torch.device(device).type == "cuda"
 
 
-def fit_fingerprint(codes, weights, num_symbols, cfg, device=None):
+def fit_fingerprint(codes, weights, num_symbols, cfg, device=None,
+                    mesh=None):
     """Identity of a fit for checkpoint-resume safety: the data plus every
     configuration field that shapes the optimization trajectory (the JAX
     package's string, so a snapshot of either package resumes in the
@@ -511,14 +526,15 @@ def fit_fingerprint(codes, weights, num_symbols, cfg, device=None):
     out: resuming with a raised iteration cap is legitimate.
 
     fused_update enters as its literal value, except that "auto" which
-    resolves on (an eligible Adam fit on a CUDA `device`) enters as "on":
+    resolves on (an eligible Adam fit on a CUDA `device`, on no mesh or a
+    mesh of one rank) enters as "on":
     the fused epilogue matches the unfused one only up to rounding, so a
     snapshot of one must not resume in the other."""
     import hashlib
 
     fused = cfg.fused_update
     if fused == "auto" and device is not None and _resolve_fused_update(
-            cfg, None, _acc_dtype(_compute_dtype(cfg.dtype)), device):
+            cfg, mesh, _acc_dtype(_compute_dtype(cfg.dtype)), device):
         fused = "on"
     h = hashlib.sha256()
     h.update(np.ascontiguousarray(codes, dtype=np.int8).tobytes())
@@ -785,7 +801,7 @@ fista_counts = {"steps": 0, "backtracks": 0}
 _FISTA_MAX_BACKTRACKS = 30
 
 
-def _make_fista_step(L, q, cfg):
+def _make_fista_step(L, q, cfg, mesh=None):
     """One FISTA step for the EXACT group-L1 objective (group_mode
     "prox"):
 
@@ -812,8 +828,10 @@ def _make_fista_step(L, q, cfg):
 
     lam = cfg.lambda_group
     smooth_cfg = replace(cfg, lambda_group=0.0)
-    vg = make_plm_value_and_grad(L, q, smooth_cfg, symmetric_params=True)
-    loss = make_plm_loss(L, q, smooth_cfg, symmetric_params=True)
+    vg = make_plm_value_and_grad(L, q, smooth_cfg, mesh=mesh,
+                                 symmetric_params=True)
+    loss = make_plm_loss(L, q, smooth_cfg, mesh=mesh,
+                         symmetric_params=True)
     acc = _acc_dtype(_compute_dtype(cfg.dtype))
     lq = L * q
     # acceptance slack scaled to the accumulation dtype's resolution: f_t
@@ -904,7 +922,7 @@ class PlmFitResult:
     ls_failed: bool = False
 
 
-def _check_config(cfg, mesh):
+def _check_config(cfg):
     if cfg.group_mode not in ("prox", "smoothed"):
         raise ValueError("Unknown group_mode: {}".format(cfg.group_mode))
     if cfg.solver not in ("lbfgs", "adam", "fista"):
@@ -923,7 +941,6 @@ def _check_config(cfg, mesh):
             "penalty. Use solver='fista' (exact proximal handling), or opt "
             "in to the smooth approximation explicitly with "
             "group_mode='smoothed'.".format(cfg.solver))
-    _no_mesh(mesh)
 
 
 def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
@@ -937,8 +954,10 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
     weights : (N,) float array of sequence weights
     num_symbols : alphabet size q
     cfg : PlmConfig
-    mesh : accepted for the JAX package's signature; a mesh raises
-        NotImplementedError (ROADMAP A18)
+    mesh : optional evcouplings_torch.parallel mesh: rows shard over its
+        "data" axis (every rank of the mesh calls fit_plm with the same
+        arguments), parameters and solver state are replicated, and each
+        evaluation is summed over the ranks by one all-reduce
     callback : optional fn(iteration_record_dict) for progress streaming
     checkpoint_file : optional path; every `checkpoint_every` iterations
         the parameters, the full solver state (Adam moments; the LBFGS
@@ -947,16 +966,20 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
         an existing file resumes the fit bit for bit. The file is the JAX
         package's snapshot (same keys and fingerprint): a snapshot of
         either package resumes in the other. A snapshot of a different
-        fit configuration or data raises ValueError.
+        fit configuration or data raises ValueError. On a mesh the first
+        rank writes, and ranks that disagree on whether to resume (a file
+        some of them cannot see) or from which iteration raise ValueError.
     checkpoint_every : checkpoint interval in iterations
-    device : torch device (None: the CUDA device; raises without one)
+    device : torch device (None: the mesh's device, else the CUDA device;
+        raises without one)
 
     Returns
     -------
     PlmFitResult
     """
-    _check_config(cfg, mesh)
-    device = resolve_device(device)
+    _check_config(cfg)
+    device = resolve_device(
+        mesh.device if device is None and mesh is not None else device)
     codes = np.asarray(codes)
     weights = np.asarray(weights, dtype=np.float64)
     N, L = codes.shape
@@ -968,19 +991,25 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
     # masters, moments and weights stay f32 (f64 in float64 runs)
     dtype = _acc_dtype(compute_dtype)
 
-    # pad rows to a block multiple: weight 0 AND codes -1 rows
-    codes_p, _ = pad_rows(codes.astype(np.int8), cfg.block_size)
-    w_p, _ = pad_rows(weights, cfg.block_size)
+    # pad rows to a block multiple per "data" rank: weight 0 AND codes -1
+    # rows; each rank keeps its own block of rows
+    n_data = 1 if mesh is None else mesh.shape[parallel.DATA_AXIS]
+    codes_p, _ = pad_rows(codes.astype(np.int8), cfg.block_size * n_data)
+    w_p, _ = pad_rows(weights, cfg.block_size * n_data)
     codes_p[N:] = -1
-    codes_d = torch.as_tensor(codes_p, device=device)
-    w_d = torch.as_tensor(w_p, device=device).to(dtype)
+    n_loc = codes_p.shape[0] // n_data
+    d_idx = 0 if mesh is None else mesh.index(parallel.DATA_AXIS)
+    rows = slice(d_idx * n_loc, (d_idx + 1) * n_loc)
+    codes_d = torch.as_tensor(codes_p[rows], device=device)
+    w_d = torch.as_tensor(w_p[rows], device=device).to(dtype)
 
-    layout = _resolve_grad_layout(cfg, compute_dtype, codes_p.shape[0],
+    layout = _resolve_grad_layout(cfg, compute_dtype, n_loc,
                                   _augmented_width(lq))
     oh_d = (build_augmented_onehot(codes_d, q, compute_dtype)
             if layout == "two_phase" else None)
 
-    vg_fn = make_plm_value_and_grad(L, q, cfg, symmetric_params=True)
+    vg_fn = make_plm_value_and_grad(L, q, cfg, mesh=mesh,
+                                    symmetric_params=True)
     params = {
         "J": torch.zeros((lq, lq), dtype=dtype, device=device),
         "h": torch.zeros((L, q), dtype=dtype, device=device),
@@ -990,14 +1019,18 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
     # resume from a snapshot if one exists
     start_iter = 0
     resumed = None
-    fingerprint = (fit_fingerprint(codes, weights, q, cfg, device)
+    fingerprint = (fit_fingerprint(codes, weights, q, cfg, device, mesh)
                    if checkpoint_file is not None else None)
-    if checkpoint_file is not None and os.path.exists(checkpoint_file):
+    have_ckpt = checkpoint_file is not None and os.path.exists(
+        checkpoint_file)
+    _agree_on_resume(mesh, checkpoint_file, have_ckpt)
+    if have_ckpt:
         ckpt = np.load(checkpoint_file)
         # the shape check (in restore_snapshot) comes first
         params, resumed, start_iter = restore_snapshot(
             ckpt, cfg.solver, L, q, dtype, device, cfg.memory_size)
         _check_ckpt_fingerprint(ckpt, fingerprint, checkpoint_file)
+        _agree_on_resume(mesh, checkpoint_file, start_iter=start_iter)
 
     with matmul_precision(cfg.precision):
         if cfg.solver == "lbfgs":
@@ -1031,7 +1064,7 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
                 return _unflatten_x(x), (x, lstate), metrics
         else:
             if cfg.solver == "fista":
-                step = _make_fista_step(L, q, cfg)
+                step = _make_fista_step(L, q, cfg, mesh)
                 state = resumed or {
                     "y": params, "x_prev": params,
                     "tk": torch.ones((), dtype=dtype, device=device),
@@ -1047,7 +1080,8 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
                 }
                 if _resolve_fused_update(cfg, mesh, dtype, device):
                     step = _make_fused_adam_step(
-                        make_plm_nll_vg(L, q, cfg), L, q, cfg, compute_dtype)
+                        make_plm_nll_vg(L, q, cfg, mesh), L, q, cfg,
+                        compute_dtype)
                     # carried across steps; from the masters it is bitwise
                     # the matrix K2 emits, so a resumed fit rebuilds it
                     state["J_aug"] = _build_j_aug(
@@ -1065,7 +1099,8 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
                 return params, state, torch.stack(rows)
 
         save = None
-        if checkpoint_file is not None:
+        if checkpoint_file is not None and (mesh is None or mesh.is_writer):
+            # one writer: the ranks hold the same bytes
             def save(params, state, iteration):
                 write_snapshot(checkpoint_file, snapshot_arrays(
                     cfg.solver, params, state, iteration, fingerprint))
@@ -1104,6 +1139,26 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
         final_loss=value,
         ls_failed=ls_failed,
     )
+
+
+def _agree_on_resume(mesh, checkpoint_file, have_ckpt=None,
+                     start_iter=None):
+    """On a mesh, raise ValueError on every rank unless all ranks see the
+    checkpoint file alike (have_ckpt), or resume from the same iteration
+    (start_iter): ranks that decide differently would run different
+    iteration counts and wait forever in the next all-reduce."""
+    if mesh is None or checkpoint_file is None:
+        return
+    if have_ckpt is not None:
+        parallel.agree(mesh, have_ckpt,
+              "checkpoint_file {!r} is visible on some ranks but not "
+              "others: mid-fit checkpointing in a run of several processes "
+              "requires a filesystem shared by all of them".format(
+                  checkpoint_file))
+    else:
+        parallel.agree(mesh, start_iter,
+              "checkpoint {!r} iteration differs across ranks: stale "
+              "per-host copies?".format(checkpoint_file))
 
 
 def _fit_loop(run_chunk, params, state, cfg, steps_per_call, callback,

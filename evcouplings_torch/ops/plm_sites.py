@@ -1,7 +1,6 @@
 """
 Asymmetric pseudolikelihood fit: L independent per-site regressions,
-symmetrized once after the fit (port of evcouplings_tpu/ops/plm_sites.py,
-on one device).
+symmetrized once after the fit (port of evcouplings_tpu/ops/plm_sites.py).
 
 Pseudolikelihood decomposes into one multinomial regression per site,
 coupled only through the shared pair parameters of the symmetric fit
@@ -20,9 +19,16 @@ path has no fused epilogue) and a batched per-site LBFGS in which every
 site has its own history, linesearch step and convergence flag, every dot
 reducing over that site's parameters only.
 
-The JAX package's "model" mesh axis (site sharding over devices) is not
-ported (ROADMAP A18); the single-device arithmetic is the JAX package's
-with the site shard being all sites.
+On a ("data", "model") mesh (evcouplings_torch.parallel.make_mesh_2d)
+sites shard along "model": each rank owns the (L_loc q, L_pad q) row
+block of J for its sites and their solver state (sites padded to a
+multiple of the model-axis size), and rows shard along "data". A value
++gradient evaluation sums (per-site NLL, dJ, dh) over the "data" ranks by
+one all-reduce; the aggregates of a step (value, ||g||^2, ||x||^2, ||h||^2,
+||J||^2, the per-site LBFGS's active and failed site counts and its
+linesearch passes) are summed over the "model" ranks by one all-reduce,
+and no other collective crosses "model" during the fit. Without a mesh the
+site shard is all sites.
 """
 
 import os
@@ -31,15 +37,16 @@ import time
 import numpy as np
 import torch
 
+from evcouplings_torch import parallel
 from evcouplings_torch._device import matmul_precision, resolve_device
 from evcouplings_torch.ops.encode import one_hot, unflatten_J
 from evcouplings_torch.ops.lbfgs import (
     _C1, _C2, _GROW, _MAX_LS, _MIN_CURVATURE, _SHRINK,
 )
 from evcouplings_torch.ops.plm import (
-    PlmConfig, PlmFitResult, _bias_corrections, _check_ckpt_fingerprint,
-    _checkpoint, _compute_dtype, _mm_acc, _no_mesh, fit_fingerprint,
-    write_snapshot,
+    PlmConfig, PlmFitResult, _agree_on_resume, _bias_corrections,
+    _check_ckpt_fingerprint, _checkpoint, _compute_dtype, _mm_acc,
+    fit_fingerprint, write_snapshot,
 )
 from evcouplings_torch.ops.plm_update import ADAM_B1, ADAM_B2, ADAM_EPS
 
@@ -52,25 +59,39 @@ _LBFGS_KEYS = ("s_hist", "y_hist", "rho", "gamma", "value", "grad",
 _ADAM_KEYS = ("mu_J", "nu_J", "mu_h", "nu_h", "count")
 
 
-def _site_mask(L, q, dtype, device):
-    """(Lq, Lq) mask zeroing each site's own q-block (no self-couplings)."""
-    site = torch.arange(L * q, device=device) // q
-    return (site[:, None] != site[None, :]).to(dtype)
+def _pad_to(n, multiple):
+    return -(-n // multiple) * multiple
 
 
-def _make_block_residual(L, q):
+def _site_mask(L, q, dtype, device, l_loc=None, m_idx=0):
+    """(l_loc q, Lq) mask zeroing each local site's own q-block (no
+    self-couplings); the local sites are [m_idx l_loc, (m_idx + 1) l_loc)
+    of L (default: all)."""
+    l_loc = L if l_loc is None else l_loc
+    row = m_idx * l_loc + torch.arange(l_loc * q, device=device) // q
+    col = torch.arange(L * q, device=device) // q
+    return (row[:, None] != col[None, :]).to(dtype)
+
+
+def _make_block_residual(L, q, l_loc=None, m_idx=0):
     """Per-block math of the asymmetric fit: logits product, per-site
-    softmax, per-site block NLL, weighted residual.
+    softmax, per-site block NLL, weighted residual, for the local sites
+    [m_idx l_loc, (m_idx + 1) l_loc) of L (default: all).
 
-    Returns block_residual(J_eff, h_c, rows, wb, oh) -> (nll_b (L,) f32,
-    this block's NLL per site; residual (block, L, q) f32)."""
+    Returns block_residual(J_eff, h_c, rows, wb, oh) -> (nll_b (l_loc,)
+    f32, this block's NLL per local site; residual (block, l_loc, q)
+    f32)."""
+    l_loc = L if l_loc is None else l_loc
+    local = slice(m_idx * l_loc, (m_idx + 1) * l_loc)
 
     def block_residual(J_eff, h_c, rows, wb, oh):
-        logits = (oh @ J_eff.T + h_c.reshape(L * q)).reshape(-1, L, q)
+        logits = (oh @ J_eff.T + h_c.reshape(l_loc * q)).reshape(
+            -1, l_loc, q)
         logits = logits.to(F32)
         logp = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
-        valid = (rows >= 0).to(F32)
-        oh_t = one_hot(rows, q, dtype=F32)
+        tgt = rows[:, local]
+        valid = (tgt >= 0).to(F32)
+        oh_t = one_hot(tgt, q, dtype=F32)
         wv = wb[:, None] * valid
         nll_b = -torch.sum(wv * torch.sum(oh_t * logp, dim=-1), dim=0)
         r = (torch.exp(logp) - oh_t) * wv[..., None]
@@ -79,69 +100,79 @@ def _make_block_residual(L, q):
     return block_residual
 
 
-def _make_local_vg(L, q, cfg, two_phase=False):
-    """local_vg(J, h, codes, w, oh_all) -> (nll (L,) f32 per site, dJ
-    (Lq, Lq) f32 with the self blocks masked, dh (L, q) f32): the data
-    term and its closed-form gradient.
+def _make_local_vg(L, q, cfg, two_phase=False, l_loc=None, m_idx=0,
+                   mesh=None):
+    """local_vg(J, h, codes, w, oh_all) -> (nll (l_loc,) f32 per local
+    site, dJ (l_loc q, Lq) f32 with the self blocks masked, dh (l_loc, q)
+    f32): the data term and its closed-form gradient for the local sites
+    (default: all L), summed over the mesh's "data" ranks (one all-reduce)
+    when a mesh is given.
 
     two_phase: the residuals of all blocks in the compute dtype, then ONE
     gradient product against the one-hot oh_all built once per fit;
     otherwise (carried) a one-hot per block and an f32 accumulator."""
+    l_loc = L if l_loc is None else l_loc
     dtype = _compute_dtype(cfg.dtype)
     lq = L * q
+    lq_loc = l_loc * q
     block = cfg.block_size
-    block_residual = _make_block_residual(L, q)
+    block_residual = _make_block_residual(L, q, l_loc, m_idx)
 
     def local_vg(J, h, codes, w, oh_all=None):
-        mask = _site_mask(L, q, dtype, J.device)
+        mask = _site_mask(L, q, dtype, J.device, l_loc, m_idx)
         J_eff = J.to(dtype) * mask
         h_c = h.to(dtype)
         n = codes.shape[0]
-        nll = torch.zeros((L,), dtype=F32, device=J.device)
+        nll = torch.zeros((l_loc,), dtype=F32, device=J.device)
         if two_phase:
-            r_all = torch.empty((n, lq), dtype=dtype, device=J.device)
+            r_all = torch.empty((n, lq_loc), dtype=dtype, device=J.device)
             for start in range(0, n, block):
                 sl = slice(start, start + block)
                 nll_b, r = block_residual(J_eff, h_c, codes[sl], w[sl],
                                           oh_all[sl])
                 nll = nll + nll_b
-                r_all[sl] = r.reshape(-1, lq).to(dtype)
+                r_all[sl] = r.reshape(-1, lq_loc).to(dtype)
             dJ = _mm_acc(r_all.T, oh_all, F32)
-            dh = torch.sum(r_all.to(F32), dim=0).reshape(L, q)
+            dh = torch.sum(r_all.to(F32), dim=0).reshape(l_loc, q)
         else:
-            dJ = torch.zeros((lq, lq), dtype=F32, device=J.device)
-            dh = torch.zeros((L, q), dtype=F32, device=J.device)
+            dJ = torch.zeros((lq_loc, lq), dtype=F32, device=J.device)
+            dh = torch.zeros((l_loc, q), dtype=F32, device=J.device)
             for start in range(0, n, block):
                 rows = codes[start:start + block]
                 oh = one_hot(rows, q, dtype=dtype).reshape(-1, lq)
                 nll_b, r = block_residual(J_eff, h_c, rows,
                                           w[start:start + block], oh)
                 nll = nll + nll_b
-                dJ += _mm_acc(r.reshape(-1, lq).to(dtype).T, oh, F32)
+                dJ += _mm_acc(r.reshape(-1, lq_loc).to(dtype).T, oh, F32)
                 dh += torch.sum(r, dim=0)
-        return nll, dJ * _site_mask(L, q, F32, J.device), dh
+        dJ = dJ * _site_mask(L, q, F32, J.device, l_loc, m_idx)
+        return parallel.all_reduce_many([nll, dJ, dh], mesh)
 
     return local_vg
 
 
-def _group_terms(J, L, q, cfg):
-    """Smoothed group-L1 over the directed (r, j) q x q blocks: (per-site
-    value (L,), gradient (Lq, Lq)); the 0.5 factor and epsilon of the
-    symmetric path."""
-    blocks = J.reshape(L, q, L, q)
+def _group_terms(J, q, cfg):
+    """Smoothed group-L1 over the directed (r, j) q x q blocks of the
+    (l_loc q, Lq) rows J: (per-site value (l_loc,), gradient like J); the
+    0.5 factor and epsilon of the symmetric path."""
+    l_loc, L = J.shape[0] // q, J.shape[1] // q
+    blocks = J.reshape(l_loc, q, L, q)
     norms = torch.sqrt(torch.sum(blocks ** 2, dim=(1, 3)) + cfg.group_eps)
     value = cfg.lambda_group * 0.5 * torch.sum(norms, dim=1)
     grad = (cfg.lambda_group * 0.5
-            * blocks / norms[:, None, :, None]).reshape(L * q, L * q)
+            * blocks / norms[:, None, :, None]).reshape(J.shape)
     return value, grad
 
 
-def _make_adam_chunk(L, q, cfg, two_phase=False):
+def _make_adam_chunk(L, q, cfg, two_phase=False, l_loc=None, m_idx=0,
+                     mesh=None):
     """chunk(J, h, state, codes, w, oh_all) -> (J, h, state, metrics
-    (steps, 5)): steps_per_call Adam steps; rows [value, ||g||, ||x||,
-    ||h||, ||J||], value and gradient at the pre-step iterate."""
+    (steps, 5)): steps_per_call Adam steps on the local sites; rows
+    [value, ||g||, ||x||, ||h||, ||J||] over all sites (summed over the
+    mesh's "model" ranks, one all-reduce per step), value and gradient at
+    the pre-step iterate."""
     steps = max(1, int(cfg.steps_per_call))
-    local_vg = _make_local_vg(L, q, cfg, two_phase=two_phase)
+    local_vg = _make_local_vg(L, q, cfg, two_phase, l_loc, m_idx, mesh)
 
     def adam(p, g, mu, nu, bc1i, bc2i):
         mu = ADAM_B1 * mu + (1.0 - ADAM_B1) * g
@@ -163,7 +194,7 @@ def _make_adam_chunk(L, q, cfg, two_phase=False):
             reg = (cfg.lambda_J * torch.sum(J ** 2)
                    + cfg.lambda_h * torch.sum(h ** 2))
             if cfg.lambda_group > 0:
-                g_value, g_grad = _group_terms(J, L, q, cfg)
+                g_value, g_grad = _group_terms(J, q, cfg)
                 reg = reg + torch.sum(g_value)
                 dJ = dJ + g_grad
             value = torch.sum(nll) + reg
@@ -173,34 +204,37 @@ def _make_adam_chunk(L, q, cfg, two_phase=False):
             bc1i, bc2i = _bias_corrections(cnt)
             J, mu_J, nu_J = adam(J, dJ, mu_J, nu_J, bc1i, bc2i)
             h, mu_h, nu_h = adam(h, dh, mu_h, nu_h, bc1i, bc2i)
-            rows.append(torch.stack([
-                value, torch.sqrt(gsq), torch.sqrt(xsq),
-                torch.sqrt(torch.sum(h ** 2)),
-                torch.sqrt(torch.sum(J ** 2))]))
+            agg = parallel.all_reduce(torch.stack([
+                value, gsq, xsq, torch.sum(h ** 2), torch.sum(J ** 2)]),
+                mesh, parallel.MODEL_AXIS)
+            rows.append(torch.stack([agg[0], *torch.sqrt(agg[1:])]))
         return J, h, (mu_J, nu_J, mu_h, nu_h, cnt), torch.stack(rows)
 
     return chunk
 
 
-def _make_local_vg_site(L, q, cfg):
+def _make_local_vg_site(L, q, cfg, l_loc=None, m_idx=0, mesh=None):
     """Per-site objective and gradient with the separable per-site
-    regularizers included:
+    regularizers included (added once, after the data term's sum over
+    the "data" ranks):
 
         f_r = nll_r + lambda_J ||J_r||^2 + lambda_h ||h_r||^2
               [+ lambda_group * 0.5 * sum_j sqrt(||J_rj||^2 + eps)]
 
-    Returns local_vg(J, h, codes, w) -> (f (L,), dJ (Lq, Lq), dh (L, q)),
-    all f32."""
-    local_vg = _make_local_vg(L, q, cfg)
+    Returns local_vg(J, h, codes, w) -> (f (l_loc,), dJ (l_loc q, Lq), dh
+    (l_loc, q)), all f32, for the local sites (default: all L)."""
+    local_vg = _make_local_vg(L, q, cfg, l_loc=l_loc, m_idx=m_idx,
+                              mesh=mesh)
 
     def vg_site(J, h, codes, w):
         nll, dJ, dh = local_vg(J, h, codes, w)
-        f = (nll + cfg.lambda_J * torch.sum(J.reshape(L, -1) ** 2, dim=1)
+        f = (nll + cfg.lambda_J * torch.sum(J.reshape(h.shape[0], -1) ** 2,
+                                            dim=1)
              + cfg.lambda_h * torch.sum(h ** 2, dim=1))
         dJ = dJ + 2.0 * cfg.lambda_J * J
         dh = dh + 2.0 * cfg.lambda_h * h
         if cfg.lambda_group > 0:
-            g_value, g_grad = _group_terms(J, L, q, cfg)
+            g_value, g_grad = _group_terms(J, q, cfg)
             f = f + g_value
             dJ = dJ + g_grad
         return f, dJ, dh
@@ -225,7 +259,7 @@ def init_lbfgs_site_state(L, d_site, m, device=None):
     }
 
 
-def _make_lbfgs_site_chunk(L, q, cfg):
+def _make_lbfgs_site_chunk(L, q, cfg, l_loc=None, m_idx=0, mesh=None):
     """Batched per-site LBFGS: each site runs its own history, step size,
     libLBFGS strong-Wolfe linesearch (the rules and constants of
     ops/lbfgs.py) and convergence flag; a site whose search fails at
@@ -234,30 +268,39 @@ def _make_lbfgs_site_chunk(L, q, cfg):
     re-evaluate at their accepted point (same inputs, same bits) until all
     are resolved; the host reads one flag per pass.
 
+    On a mesh the state holds the local sites; each evaluation sums the
+    data term over the "data" ranks (the ranks of a "data" group hold the
+    same sites, so their linesearches take the same passes), and the
+    step's aggregates, its linesearch passes included, are summed over
+    the "model" ranks by one all-reduce.
+
     Returns (chunk, init_vg): chunk(J, h, state, codes, w) -> (J, h,
     state, metrics (steps, 7)) with rows [value, ||g||, ||x||,
     n_unfrozen_sites, n_failed_sites, ||h||, ||J||] over all sites;
     init_vg(J, h, codes, w) -> (f, g), the carried evaluation of a fresh
     state.
     """
+    l_loc = L if l_loc is None else l_loc
     m = cfg.memory_size
     lq = L * q
     d_j = q * lq
     steps = max(1, int(cfg.steps_per_call))
-    vg_site = _make_local_vg_site(L, q, cfg)
+    vg_site = _make_local_vg_site(L, q, cfg, l_loc, m_idx, mesh)
     eps_f = torch.finfo(F32).eps
 
     def to_x(J, h):
-        return torch.cat([J.to(F32).reshape(L, d_j),
-                          h.to(F32).reshape(L, q)], dim=1)
+        return torch.cat([J.to(F32).reshape(l_loc, d_j),
+                          h.to(F32).reshape(l_loc, q)], dim=1)
 
     def from_x(x):
-        return x[:, :d_j].reshape(lq, lq), x[:, d_j:].reshape(L, q)
+        return (x[:, :d_j].reshape(l_loc * q, lq),
+                x[:, d_j:].reshape(l_loc, q))
 
     def vg_x(x, codes, w):
         J, h = from_x(x)
         f, dJ, dh = vg_site(J, h, codes, w)
-        return f, torch.cat([dJ.reshape(L, d_j), dh.reshape(L, q)], dim=1)
+        return f, torch.cat([dJ.reshape(l_loc, d_j),
+                             dh.reshape(l_loc, q)], dim=1)
 
     def rowdot(a, b):
         return torch.sum(a * b, dim=1)
@@ -289,12 +332,12 @@ def _make_lbfgs_site_chunk(L, q, cfg):
             dnorm = torch.sqrt(rowdot(d, d))
             t0 = 1.0 / torch.clamp(dnorm, min=1e-30)
         else:
-            t0 = torch.ones((L,), dtype=F32, device=x.device)
+            t0 = torch.ones((l_loc,), dtype=F32, device=x.device)
         t0 = torch.where(frozen, torch.zeros_like(t0), t0)
 
         # per-site linesearch, one batched evaluation per pass
         t_next, t, f_t, g_t = t0, t0, f0, g
-        ok = torch.zeros((L,), dtype=torch.bool, device=x.device)
+        ok = torch.zeros((l_loc,), dtype=torch.bool, device=x.device)
         done = frozen
         n_ls = 0
         while n_ls < _MAX_LS and not bool(done.all()):
@@ -354,9 +397,9 @@ def _make_lbfgs_site_chunk(L, q, cfg):
             "converged": st["converged"],
             "ls_failed": st["ls_failed"] | new_fail,
             "count": st["count"] + 1,
-            "nevals": st["nevals"] + n_ls,
+            "nevals": st["nevals"],
         }
-        return x_new, st_new
+        return x_new, st_new, n_ls
 
     def fold_convergence(x, st):
         """Mark the sites that meet the gradient criterion at (x, st)."""
@@ -372,19 +415,26 @@ def _make_lbfgs_site_chunk(L, q, cfg):
         st = fold_convergence(x, st)
         rows = []
         for _ in range(steps):
-            x, st = step(x, st, codes, w)
+            x, st, n_ls = step(x, st, codes, w)
             # folded at the post-step iterate, so the row of the step that
             # converges already reports n_unfrozen == 0
             st = fold_convergence(x, st)
-            rows.append(torch.stack([
+            agg = parallel.all_reduce(torch.stack([
                 torch.sum(st["value"]),
-                torch.sqrt(torch.sum(st["grad"] ** 2)),
-                torch.sqrt(torch.sum(x ** 2)),
+                torch.sum(st["grad"] ** 2),
+                torch.sum(x ** 2),
                 torch.sum((~(st["converged"] | st["ls_failed"])).to(F32)),
                 torch.sum(st["ls_failed"].to(F32)),
-                torch.sqrt(torch.sum(x[:, d_j:] ** 2)),
-                torch.sqrt(torch.sum(x[:, :d_j] ** 2)),
-            ]))
+                torch.sum(x[:, d_j:] ** 2),
+                torch.sum(x[:, :d_j] ** 2),
+                torch.tensor(float(n_ls), dtype=F32, device=x.device),
+            ]), mesh, parallel.MODEL_AXIS)
+            # each model shard's linesearch takes its own number of passes:
+            # nevals counts them all, equal on every rank
+            st = dict(st, nevals=st["nevals"] + int(agg[7]))
+            rows.append(torch.stack([
+                agg[0], torch.sqrt(agg[1]), torch.sqrt(agg[2]), agg[3],
+                agg[4], torch.sqrt(agg[5]), torch.sqrt(agg[6])]))
         J2, h2 = from_x(x)
         return J2, h2, st, torch.stack(rows)
 
@@ -405,11 +455,20 @@ def fit_plm_asym(codes, weights, num_symbols,
     per-site LBFGS, _make_lbfgs_site_chunk). dtype "float32" or
     "bfloat16"; masters, optimizer state and accumulators are float32.
 
+    mesh: a ("data", "model") mesh (evcouplings_torch.parallel
+    .make_mesh_2d); every rank of it calls fit_plm_asym with the same
+    arguments. Sites are padded to a multiple of the model-axis size and
+    shard along "model", rows are padded to a multiple of block_size x
+    the data-axis size (weight 0) and shard along "data"; every rank
+    returns the same result.
+
     checkpoint_file: every checkpoint_every iterations the directed
     couplings, fields, the full solver state and the iteration count are
-    written atomically (the JAX package's keys and fingerprint); an
-    existing file resumes the fit bit for bit. A mesh raises
-    NotImplementedError (ROADMAP A18); device None is the CUDA device.
+    written atomically (the JAX package's keys and fingerprint; the
+    site-padded arrays, gathered over "model" and written by the mesh's
+    first rank); an existing file resumes the fit bit for bit (with the
+    same model-axis size and solver). device None is the mesh's device,
+    else the CUDA device.
     """
     if cfg.solver not in ("adam", "lbfgs"):
         raise ValueError(
@@ -435,62 +494,95 @@ def fit_plm_asym(codes, weights, num_symbols,
         raise ValueError(
             "grad_layout='two_phase' is not supported with solver='lbfgs' "
             "(the per-site engine uses the carried layout)")
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    if mesh is not None and parallel.MODEL_AXIS not in mesh.shape:
+        raise ValueError(
+            "fit_plm_asym needs a ('data', 'model') mesh "
+            "(parallel.make_mesh_2d), got the axes {}".format(
+                mesh.axis_names))
+    device = resolve_device(
+        mesh.device if device is None and mesh is not None else device)
 
     codes = np.asarray(codes)
     weights = np.asarray(weights, dtype=np.float64)
     N, L = codes.shape
     q = int(num_symbols)
-    lq = L * q
+    if mesh is None:
+        n_data = n_model = 1
+        d_idx = m_idx = 0
+    else:
+        axes = (parallel.DATA_AXIS, parallel.MODEL_AXIS)
+        n_data, n_model = (mesh.shape[a] for a in axes)
+        d_idx, m_idx = (mesh.index(a) for a in axes)
+    L_pad = _pad_to(L, n_model)
+    l_loc = L_pad // n_model
+    lq_pad = L_pad * q
     block = min(cfg.block_size, max(8, N))
     cfg = PlmConfig(**{**cfg.__dict__, "block_size": block})
-    n_pad = -(-max(N, block) // block) * block
+    n_pad = _pad_to(max(N, block * n_data), block * n_data)
+    n_loc = n_pad // n_data
 
-    codes_p = np.full((n_pad, L), -1, dtype=np.int8)
-    codes_p[:N] = codes
+    codes_p = np.full((n_pad, L_pad), -1, dtype=np.int8)
+    codes_p[:N, :L] = codes
     w_p = np.zeros(n_pad, dtype=np.float32)
     w_p[:N] = weights
-    codes_d = torch.as_tensor(codes_p, device=device)
-    w_d = torch.as_tensor(w_p, device=device)
+    rows = slice(d_idx * n_loc, (d_idx + 1) * n_loc)
+    codes_d = torch.as_tensor(codes_p[rows], device=device)
+    w_d = torch.as_tensor(w_p[rows], device=device)
     compute_dtype = _compute_dtype(cfg.dtype)
+    sites = dict(l_loc=l_loc, m_idx=m_idx, mesh=mesh)
 
-    J = torch.zeros((lq, lq), dtype=F32, device=device)
-    h = torch.zeros((L, q), dtype=F32, device=device)
-    d_site = q * lq + q
+    J = torch.zeros((l_loc * q, lq_pad), dtype=F32, device=device)
+    h = torch.zeros((l_loc, q), dtype=F32, device=device)
+    d_site = q * lq_pad + q
     oh_d = None
     if cfg.solver == "adam":
         state = (torch.zeros_like(J), torch.zeros_like(J),
                  torch.zeros_like(h), torch.zeros_like(h), 0)
-        adam_chunk = _make_adam_chunk(L, q, cfg, two_phase=two_phase)
+        adam_chunk = _make_adam_chunk(L_pad, q, cfg, two_phase, **sites)
         if two_phase:
-            oh_d = one_hot(codes_d, q, dtype=compute_dtype).reshape(n_pad, lq)
+            oh_d = one_hot(codes_d, q, dtype=compute_dtype).reshape(
+                n_loc, lq_pad)
 
         def chunk(J, h, state):
             return adam_chunk(J, h, state, codes_d, w_d, oh_d)
     else:
-        state = init_lbfgs_site_state(L, d_site, cfg.memory_size, device)
-        lb_chunk, init_vg = _make_lbfgs_site_chunk(L, q, cfg)
+        state = init_lbfgs_site_state(l_loc, d_site, cfg.memory_size,
+                                      device)
+        lb_chunk, init_vg = _make_lbfgs_site_chunk(L_pad, q, cfg, **sites)
 
         def chunk(J, h, state):
             return lb_chunk(J, h, state, codes_d, w_d)
 
+    def model_sum(t):
+        """A number summed over the "model" ranks (the local sites' share
+        of an all-site total)."""
+        return parallel.all_reduce(t.reshape(1), mesh,
+                                   parallel.MODEL_AXIS)[0]
+
     start_iter = 0
-    fingerprint = (fit_fingerprint(codes, weights, q, cfg, device)
+    fingerprint = (fit_fingerprint(codes, weights, q, cfg, device, mesh)
                    if checkpoint_file is not None else None)
     needs_init_eval = cfg.solver == "lbfgs"
-    if checkpoint_file is not None and os.path.exists(checkpoint_file):
+    have_ckpt = checkpoint_file is not None and os.path.exists(
+        checkpoint_file)
+    _agree_on_resume(mesh, checkpoint_file, have_ckpt)
+    if have_ckpt:
         ckpt = np.load(checkpoint_file)
         _check_ckpt_fingerprint(ckpt, fingerprint, checkpoint_file)
         J, h, state, start_iter = _restore_asym_snapshot(
-            ckpt, cfg, L, q, device, checkpoint_file)
+            ckpt, cfg, L_pad, q, device, checkpoint_file, l_loc, m_idx)
         needs_init_eval = False
+        _agree_on_resume(mesh, checkpoint_file, start_iter=start_iter)
 
     save = None
     if checkpoint_file is not None:
         def save(J, h, state, iteration):
-            write_snapshot(checkpoint_file, _asym_snapshot_arrays(
-                cfg.solver, J, h, state, iteration, fingerprint))
+            # every rank takes part in the gathers, the first one writes
+            arrays = _asym_snapshot_arrays(
+                cfg.solver, *_gather_sites(J, h, state, l_loc, q, mesh),
+                iteration, fingerprint)
+            if mesh is None or mesh.is_writer:
+                write_snapshot(checkpoint_file, arrays)
 
     t0 = time.time()
     table = []
@@ -508,9 +600,10 @@ def fit_plm_asym(codes, weights, num_symbols,
         # iteration count)
         if cfg.solver == "lbfgs" and start_iter > 0:
             frozen = state["converged"] | state["ls_failed"]
-            if bool(frozen.all()):
+            if float(model_sum((~frozen).sum().to(F32))) == 0:
                 stopped = True
-                ls_failed = bool(state["ls_failed"].any())
+                ls_failed = float(model_sum(
+                    state["ls_failed"].sum().to(F32))) > 0
                 converged = not ls_failed
 
         while it < cfg.max_iter and not stopped:
@@ -548,25 +641,61 @@ def fit_plm_asym(codes, weights, num_symbols,
         if cfg.solver == "adam":
             # Adam rows record fx at the pre-update iterate: price the
             # parameters actually returned
-            nll, _, _ = _make_local_vg(L, q, cfg)(J, h, codes_d, w_d)
+            nll, _, _ = _make_local_vg(L_pad, q, cfg, **sites)(
+                J, h, codes_d, w_d)
             reg = (cfg.lambda_J * torch.sum(J ** 2)
                    + cfg.lambda_h * torch.sum(h ** 2))
             if cfg.lambda_group > 0:
-                reg = reg + torch.sum(_group_terms(J, L, q, cfg)[0])
-            value = float(torch.sum(nll) + reg)
+                reg = reg + torch.sum(_group_terms(J, q, cfg)[0])
+            value = float(model_sum(torch.sum(nll) + reg))
         elif last_metrics is not None:
             # the final row prices the returned parameters
             value = float(last_metrics[-1][0])
         elif np.isnan(value):
             # the loop never ran: the state carries the current objective
-            value = float(torch.sum(state["value"].double()))
+            value = float(model_sum(torch.sum(state["value"].double())))
 
-    J_dir = J.detach().to("cpu", torch.float64).numpy()
+    J_pad, h_pad = _gather_sites(J, h, None, l_loc, q, mesh)[:2]
+    lq = L * q
+    J_dir = J_pad.detach().to("cpu", torch.float64).numpy().reshape(
+        L_pad, q, L_pad, q)[:L, :, :L, :].reshape(lq, lq)
     return PlmFitResult(
         J_ij=unflatten_J(0.5 * (J_dir + J_dir.T), L, q),
-        h_i=h.detach().to("cpu", torch.float64).numpy(),
+        h_i=h_pad.detach().to("cpu", torch.float64).numpy()[:L],
         iteration_table=table, num_iter=it, converged=converged,
         final_loss=value, ls_failed=bool(ls_failed))
+
+
+def _gather_sites(J, h, state, l_loc, q, mesh):
+    """(J, h, state) of all (padded) sites from each rank's local sites:
+    each rank places its rows in zeroed full arrays and one all-reduce per
+    array over "model" sums them (exact: every entry has one nonzero
+    term). Without a mesh, the arguments as they are."""
+    if mesh is None:
+        return J, h, state
+    k = mesh.index(parallel.MODEL_AXIS)
+    n_model = mesh.shape[parallel.MODEL_AXIS]
+
+    def gather(t, dim, per_site):
+        if not isinstance(t, torch.Tensor):
+            return t
+        shape = list(t.shape)
+        shape[dim] *= n_model
+        full = torch.zeros(shape, dtype=torch.int32 if t.dtype == torch.bool
+                           else t.dtype, device=t.device)
+        at = k * l_loc * per_site
+        full.narrow(dim, at, t.shape[dim]).copy_(t)
+        parallel.all_reduce(full, mesh, parallel.MODEL_AXIS)
+        return full.bool() if t.dtype == torch.bool else full
+
+    if isinstance(state, tuple):    # Adam: mu_J, nu_J, mu_h, nu_h, count
+        state = tuple(gather(t, 0, q if i < 2 else 1)
+                      for i, t in enumerate(state))
+    elif state is not None:                 # per-site LBFGS
+        dims = {"s_hist": 1, "y_hist": 1, "rho": 1}
+        state = {key: gather(v, dims.get(key, 0), 1)
+                 for key, v in state.items()}
+    return gather(J, 0, q), gather(h, 0, 1), state
 
 
 def _asym_snapshot_arrays(solver, J, h, state, iteration, fingerprint=None):
@@ -590,15 +719,21 @@ def _asym_snapshot_arrays(solver, J, h, state, iteration, fingerprint=None):
     return arrays
 
 
-def _restore_asym_snapshot(ckpt, cfg, L, q, device, name="snapshot"):
+def _restore_asym_snapshot(ckpt, cfg, L, q, device, name="snapshot",
+                           l_loc=None, m_idx=0):
     """(J, h, solver state, iteration) from an asymmetric fit's snapshot
-    arrays; ValueError where they cannot resume this fit."""
+    arrays, for the local sites [m_idx l_loc, (m_idx + 1) l_loc) of the L
+    (padded) sites (default: all); ValueError where they cannot resume
+    this fit."""
     lq = L * q
+    l_loc = L if l_loc is None else l_loc
     files = set(ckpt.files if hasattr(ckpt, "files") else ckpt)
     if ckpt["J"].shape != (lq, lq):
         raise ValueError(
             "Checkpoint {} does not match the problem shape (L={}, "
             "q={})".format(name, L, q))
+    local = slice(m_idx * l_loc, (m_idx + 1) * l_loc)
+    local_q = slice(m_idx * l_loc * q, (m_idx + 1) * l_loc * q)
 
     def put(a, dtype=F32):
         return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
@@ -609,8 +744,8 @@ def _restore_asym_snapshot(ckpt, cfg, L, q, device, name="snapshot"):
                 "Checkpoint {} carries no Adam state: it cannot resume an "
                 "asymmetric adam fit (was it written by the lbfgs solver or "
                 "the symmetric fitter?)".format(name))
-        state = tuple(put(ckpt[k]) for k in _ADAM_KEYS[:4]) + (
-            int(ckpt["count"]),)
+        state = tuple(put(ckpt[k][local_q if k.endswith("J") else local])
+                      for k in _ADAM_KEYS[:4]) + (int(ckpt["count"]),)
     else:
         missing = {"lbfgs_" + k for k in _LBFGS_KEYS} - files
         if missing:
@@ -629,8 +764,9 @@ def _restore_asym_snapshot(ckpt, cfg, L, q, device, name="snapshot"):
             v = ckpt["lbfgs_" + k]
             if k in ("count", "nevals"):
                 state[k] = int(v)
-            elif k in ("converged", "ls_failed"):
-                state[k] = put(v, torch.bool)
-            else:
-                state[k] = put(v)
-    return put(ckpt["J"]), put(ckpt["h"]), state, int(ckpt["iteration"])
+                continue
+            v = v[:, local] if k in ("s_hist", "y_hist", "rho") else v[local]
+            state[k] = put(v, torch.bool if k in ("converged", "ls_failed")
+                           else F32)
+    return (put(ckpt["J"][local_q]), put(ckpt["h"][local]), state,
+            int(ckpt["iteration"]))

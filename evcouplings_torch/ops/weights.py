@@ -37,7 +37,7 @@ def _identity_count_threshold(L, identity_threshold):
     return k
 
 
-def _num_cluster_members_plain(codes, min_count):
+def _num_cluster_members_plain(codes, min_count, tiles=None):
     """Plain PyTorch version of K1: (n, L) int8 codes -> (n,) int32
     neighbor counts.
 
@@ -45,10 +45,18 @@ def _num_cluster_members_plain(codes, min_count):
     encodings. The products run in float32, which is exact here: the
     operands are 0/1 and every sum is an integer <= L < 2^24. (An int8
     product on the CPU would return int8 and wrap past 127.)
+
+    tiles: (begin, count) of K1's upper-triangle tiles (128 x 128, numbered
+    row by row, kernels/reweight.tile_range): only those tiles contribute,
+    a tile (ti, tj > ti) its row sums to its rows and its column sums to its
+    columns, a diagonal tile its row sums, as the kernel's range launch adds
+    them. None counts every pair.
     """
     n, L = codes.shape
     q = max(int(codes.max()) + 1, 1)
     oh = one_hot(codes, q, dtype=torch.float32).reshape(n, L * q)
+    if tiles is not None:
+        return _plain_tile_range(oh, min_count, *tiles)
     counts = torch.empty(n, dtype=torch.int32, device=codes.device)
     for start in range(0, n, _PLAIN_BLOCK):
         ids = oh[start:start + _PLAIN_BLOCK] @ oh.T
@@ -56,6 +64,46 @@ def _num_cluster_members_plain(codes, min_count):
             (ids >= min_count).sum(dim=1, dtype=torch.int32)
         )
     return counts
+
+
+def _plain_tile_range(oh, min_count, begin, count):
+    """Counts of the tiles [begin, begin + count) of the row-by-row
+    upper-triangle numbering, from the (n, Lq) float32 one-hot; each tile
+    row's share of the range is one product."""
+    from evcouplings_torch.kernels.reweight import TILE
+
+    n = oh.shape[0]
+    tiles = -(-n // TILE)
+    counts = torch.zeros(n, dtype=torch.int32, device=oh.device)
+    first = 0                                 # number of tile (ti, ti)
+    for ti in range(tiles):
+        lo = max(begin, first) - first + ti   # tj range of this row
+        hi = min(begin + count, first + tiles - ti) - first + ti
+        first += tiles - ti
+        if lo >= hi:
+            continue
+        rows = slice(ti * TILE, (ti + 1) * TILE)
+        c0 = lo * TILE
+        hit = (oh[rows] @ oh[c0:hi * TILE].T) >= min_count
+        counts[rows] += hit.sum(dim=1, dtype=torch.int32)
+        # off-diagonal tiles add their column sums too
+        off = max(ti + 1, lo) * TILE - c0
+        counts[c0 + off:hi * TILE] += hit[:, off:].sum(dim=0,
+                                                      dtype=torch.int32)
+    return counts
+
+
+def _neighbor_counts(codes, min_count, tiles=None):
+    """(n,) int32 counts of int8 codes: K1 on a CUDA tensor, the plain
+    version on a CPU tensor (tiles: a range of K1's tiles, or None)."""
+    if codes.is_cuda:
+        from evcouplings_torch.kernels.reweight import neighbor_counts
+
+        return neighbor_counts(codes, min_count, tiles)
+    if codes.device.type == "cpu":
+        return _num_cluster_members_plain(codes, min_count, tiles)
+    raise ValueError(
+        "no reweighting path for device {}".format(codes.device))
 
 
 def _as_tensor(matrix_mapped, device):
@@ -93,18 +141,8 @@ def num_cluster_members(matrix_mapped, identity_threshold, device=None):
     (N,) float64 tensor of cluster sizes, on the codes' device
     """
     codes = _codes_tensor(matrix_mapped, device)
-    n, L = codes.shape
-    min_count = _identity_count_threshold(L, identity_threshold)
-    if codes.is_cuda:
-        from evcouplings_torch.kernels.reweight import neighbor_counts
-
-        counts = neighbor_counts(codes, min_count)
-    elif codes.device.type == "cpu":
-        counts = _num_cluster_members_plain(codes, min_count)
-    else:
-        raise ValueError(
-            "no reweighting path for device {}".format(codes.device))
-    return counts.to(torch.float64)
+    min_count = _identity_count_threshold(codes.shape[1], identity_threshold)
+    return _neighbor_counts(codes, min_count).to(torch.float64)
 
 
 def identities_to_seq(seq_mapped, matrix_mapped, device=None):

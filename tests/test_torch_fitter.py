@@ -162,13 +162,16 @@ def test_site_and_row_padding_is_inert(tmp_path):
 
 
 def test_unported_parametrizations_raise(tmp_path, monkeypatch):
-    """What still raises: a mesh (ROADMAP A18), an unknown
+    """What raises: a mesh over more ranks than the run has, an unknown
     parametrization, and an explicit symmetric fit past the memory
     budget."""
+    from evcouplings_torch.parallel import make_mesh
+
     a2m = os.path.join(GOLDEN, "golden.a2m")
     kw = dict(device="cpu", focus_seq="TARGET_SEQ/11-28")
-    with pytest.raises(NotImplementedError, match="A18"):
-        run_plm(a2m, str(tmp_path / "e.txt"), mesh=object(), **kw)
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        run_plm(a2m, str(tmp_path / "e.txt"),
+                mesh=make_mesh(2, device="cpu"), **kw)
     monkeypatch.setenv("EVCOUPLINGS_HBM_BYTES", "1e5")
     with pytest.raises(MemoryError):
         run_plm(a2m, str(tmp_path / "e.txt"), parametrization="symmetric",

@@ -119,6 +119,32 @@ def _k1_check(cuda, m, theta):
     return got
 
 
+@pytest.mark.parametrize("n,parts", [(4099, 3), (1000, 7), (129, 5)])
+def test_k1_tile_ranges_sum_to_the_whole_launch(cuda, n, parts):
+    # the range launch of a sharded run: `parts` ranges of the tiles, each
+    # equal to the plain version over the same tiles, sum exactly to one
+    # whole launch; an empty range (129 rows: 3 tiles in 5 parts) launches
+    # nothing and counts nothing
+    from evcouplings_torch.kernels.reweight import neighbor_counts, tile_range
+    from evcouplings_torch.ops.weights import (
+        _identity_count_threshold, _num_cluster_members_plain,
+    )
+
+    rng = np.random.default_rng(n)
+    m = rng.integers(0, 21, size=(n, 160))
+    m[1::3] = m[0]
+    codes = torch.as_tensor(m.astype(np.int8), device=cuda)
+    k = _identity_count_threshold(160, 0.8)
+    before = neighbor_counts.launches
+    ranges = [tile_range(n, r, parts) for r in range(parts)]
+    got = [neighbor_counts(codes, k, t) for t in ranges]
+    assert neighbor_counts.launches - before == sum(
+        1 for _, count in ranges if count)
+    for t, g in zip(ranges, got):
+        assert torch.equal(g, _num_cluster_members_plain(codes, k, t))
+    assert torch.equal(sum(got), neighbor_counts(codes, k))
+
+
 @pytest.mark.parametrize("n,L", [(5, 3), (127, 37), (129, 161), (300, 1)])
 def test_k1_ragged_and_all_missing_rows(cuda, n, L):
     # n below one 128-row tile, on either side of a tile edge, odd L; an

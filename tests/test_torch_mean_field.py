@@ -208,8 +208,11 @@ def test_independent_model_matches_jax(fits):
 
 def test_fit_refuses_a_mesh():
     ali = Alignment.from_path(GOLDEN, "fasta", device="cpu")
-    with pytest.raises(NotImplementedError, match="A18"):
-        tmf.MeanFieldDCA(ali).fit(mesh=object())
+    # a mesh over more ranks than the run has (one process here)
+    from evcouplings_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        tmf.MeanFieldDCA(ali).fit(mesh=make_mesh(2, device="cpu"))
 
 
 @pytest.mark.parametrize("score", ["cn", "di"])

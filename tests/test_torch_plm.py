@@ -245,7 +245,16 @@ def test_fused_update_auto_follows_the_device():
                          torch.float32),
                         (adam, torch.float64)):
         assert not tp._resolve_fused_update(cfg, None, master, cuda)
-    assert not tp._resolve_fused_update(adam, object(), torch.float32, cuda)
+    # a mesh of one rank keeps it; a mesh of more turns it off (K2 updates
+    # the replicated arrays outside the sharded gradient)
+    from types import SimpleNamespace
+
+    from evcouplings_torch.parallel import make_mesh
+
+    assert tp._resolve_fused_update(adam, make_mesh(1, device="cpu"),
+                                    torch.float32, cuda)
+    assert not tp._resolve_fused_update(adam, SimpleNamespace(size=2),
+                                        torch.float32, cuda)
     assert not tp._resolve_fused_update(
         tp.PlmConfig(solver="adam", fused_update="off"), None,
         torch.float32, cuda)
@@ -253,9 +262,12 @@ def test_fused_update_auto_follows_the_device():
 
 def test_unported_options_raise(tmp_path):
     codes = np.zeros((8, 3), np.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
+    # a mesh over more ranks than the run has (one process here)
+    from evcouplings_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         tp.fit_plm(codes, np.ones(8), 2, tp.PlmConfig(), device="cpu",
-                   mesh=object())
+                   mesh=make_mesh(2, device="cpu"))
     with pytest.raises(ValueError, match="smoothed"):
         tp.fit_plm(codes, np.ones(8), 2, tp.PlmConfig(lambda_group=0.1),
                    device="cpu")

@@ -113,8 +113,12 @@ def test_refusals():
              "two_phase")):
         with pytest.raises(ValueError, match=match):
             ts.fit_plm_asym(codes, w, 5, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A18"):
-        ts.fit_plm_asym(codes, w, 5, mesh=object(), device="cpu")
+    # a mesh without a "model" axis (sites shard along it)
+    from evcouplings_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="'model'"):
+        ts.fit_plm_asym(codes, w, 5, mesh=make_mesh(1, device="cpu"),
+                        device="cpu")
 
 
 def test_lbfgs_converges_per_site():

@@ -427,7 +427,8 @@ def test_external_identity_filter_raises(chains, tmp_path):
 
 @pytest.mark.parametrize("knobs,error,match", [
     ({"fit_devices": 2}, Exception, r"fit_devices must be in \[1, 1\]"),
-    ({"model_shards": 2}, NotImplementedError, "ROADMAP A18"),
+    ({"model_shards": 2}, Exception, r"\(1\) must be divisible by "
+     r"model_shards \(2\)"),
     ({"fit_devices": "many"}, Exception, "fit_devices"),
     ({"parametrization": "sideways"}, Exception, "parametrization"),
     ({"precision": "exact"}, Exception, "precision"),
