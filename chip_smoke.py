@@ -43,12 +43,18 @@ ranks that this script starts as `chip_smoke.py --phase12-worker ...`
 (12b: K1 split into three tile ranges, the fits, the collective profile,
 the sharded float64 inversion, the couplings stage with fit_devices 3,
 all-reduce times) and a (2, 2) mesh of four (12c: the asymmetric fit).
-Every
+Phase 13 starts the port's command as a user does (`python3 -m
+evcouplings_torch.utils.app <config> --yolo`) on a batch sweep of phase
+6b's two jobs: the local submitter runs each sub-job in its own process
+on the card, then the summarizer; the sqlite tracker, the job database,
+the summary table, each sub-job's artifacts against 6b's in-process job
+and the kernel events in the sub-jobs' traces are checked. Every
 phase raises on a mismatch; nothing is caught, except that a machine
 without matplotlib cannot draw the mutate stage's plots (nor the
-complex concatenation's distance plot), which the script then names
-before its last lines (the compare stage is then configured to draw no
-figure). The last lines are a JSON object
+complex concatenation's distance plot, nor the sweep's summary figure:
+its summarizer then runs as `chip_smoke.py --phase13-summary ...`),
+which the script then names before its last lines (the compare stage is
+then configured to draw no figure). The last lines are a JSON object
 describing each kernel, the card's name and power limit as nvidia-smi
 reports them, and {"ok": true, "device": {...}}.
 
@@ -2597,6 +2603,285 @@ def phase12(tmp, a2m, focus_seq, full_state, stage_incfg, lambda_J, rows):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the L6/L5 runtime (A19d). The port's command, started as a user
+# starts it (`python3 -m evcouplings_torch.utils.app <config> --yolo`), runs
+# a two-sub-job batch sweep at full width: the local submitter starts each
+# sub-job as its own `python -m evcouplings_torch.utils.pipeline` process
+# (both at once, on the one card), then the port's summarizer; the sub-jobs'
+# states go to an sqlite tracker. The sweep runs twice: untraced, as a user
+# runs it (its seconds are the user's), then with each sub-job's stages
+# traced (EVCOUPLINGS_TRACE_DIR) and the traces' kernel events counted by
+# symbol: the proof that the sub-jobs ran K1, K4 and K2 on the card
+# ---------------------------------------------------------------------------
+
+# the symbol of each kernel in a trace
+KERNEL_SYMBOLS = {"K1": "neighbor_counts_kernel",
+                  "K2": "_adam_update_kernel",
+                  "K3": "_adam_update_presym_kernel",
+                  "K4": "seq_dots_kernel"}
+# seconds the command may run before the phase fails
+PHASE13_RUN_S = 600
+
+
+def phase13_config(root, a2m, align_kw, deltas, traced):
+    """The sweep's config, in the sample monomer config's shape: 6b's
+    parity job (align `existing`, couplings `standard`) with an sqlite
+    tracker, the local engine running both sub-jobs at once, and one batch
+    delta per mode (deltas: mode -> couplings settings). Each sub-job's
+    shell first writes its unix time to <root>/spawn_<mode>.txt (the
+    child's own start) and, if traced, points EVCOUPLINGS_TRACE_DIR at a
+    directory of its own under the command's."""
+    import shlex
+
+    config = pipeline_config(os.path.join(root, "sweep"), a2m, "TARGET",
+                             align_kw, deltas["parity"])
+    config["management"] = {
+        "tracker_type": "sql", "job_id": "phase13",
+        "connection_string": "sqlite:///" + os.path.join(root, "jobs.db")}
+    config["environment"] = {"engine": "local", "cores": 1,
+                             "parallel_workers": 2, "memory": None,
+                             "time": None, "queue": None,
+                             "configuration": None}
+    config["batch"] = {}
+    for mode, delta in deltas.items():
+        setup = "date +%s.%N > " + shlex.quote(
+            os.path.join(root, "spawn_" + mode + ".txt"))
+        if traced:
+            setup += (" && export EVCOUPLINGS_TRACE_DIR="
+                      "$EVCOUPLINGS_TRACE_DIR/" + mode)
+        config["batch"]["_" + mode] = {
+            "couplings": delta, "environment": {"configuration": setup}}
+    return config
+
+
+def trace_kernel_counts(trace_dir):
+    """The kernel events of every Chrome trace in trace_dir (one per
+    stage, `<stage>_<pid>_<ns>.json`), counted by the symbols of K1, K2
+    and K4, and each stage's device busy seconds (kernels, copies and
+    fills). Returns (counts, {stage: busy seconds})."""
+    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    busy = {}
+    for name in sorted(os.listdir(trace_dir)):
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        stage = name.split("_")[0]
+        busy[stage] = busy.get(stage, 0.0) + sum(
+            e.get("dur", 0) for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e6
+        for e in events:
+            if e.get("cat") != "kernel":
+                continue
+            for k, symbol in KERNEL_SYMBOLS.items():
+                if symbol in e.get("name", ""):
+                    counts[k] += 1
+    return counts, busy
+
+
+def phase13_summary_worker(record, *args):
+    """The summarizer a sub-job runs on a machine without matplotlib
+    (`chip_smoke.py --phase13-summary RECORD PIPELINE PREFIX CONFIG...`):
+    the port's summarizer with its figure replaced by a recorder, which
+    names the figure it could not draw in RECORD."""
+    sys.path.insert(0, HERE)
+    from evcouplings_torch.utils import summarize
+
+    def record_plot(ali_table, data, plot_file):
+        with open(record, "a") as f:
+            f.write(plot_file + "\n")
+
+    summarize._write_monomer_plot = record_plot
+    summarize.app(args=list(args), prog_name="evcouplings_torch_summarize")
+
+
+def phase13_run(root, config, env, traced):
+    """Write the config and start the port's command on it, with
+    EVCOUPLINGS_TRACE_DIR set if traced (else unset); the command must
+    exit 0. Returns (seconds, unix start)."""
+    from evcouplings_torch.utils.config import write_config_file
+
+    cfg_file = os.path.join(root, "phase13.yml")
+    write_config_file(cfg_file, config)
+    env = dict(os.environ, **env)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("EVCOUPLINGS_TRACE_DIR", None)
+    if traced:
+        env["EVCOUPLINGS_TRACE_DIR"] = os.path.join(root, "traces")
+    start = time.time()
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "evcouplings_torch.utils.app", cfg_file,
+         "--yolo"], cwd=root, env=env, capture_output=True, text=True,
+        timeout=PHASE13_RUN_S)
+    secs = time.perf_counter() - t
+    if proc.returncode != 0:
+        flags = {}
+        for mode in config["batch"]:
+            for ext in (".failed", ".terminated", ".bailout"):
+                path = config["global"]["prefix"] + mode + ext
+                if os.path.isfile(path):
+                    with open(path) as f:
+                        flags[path] = f.read()
+        raise AssertionError(
+            "phase 13: the command exited {} after {:.1f} s\nstdout:\n{}\n"
+            "stderr:\n{}\nflag files: {}".format(
+                proc.returncode, secs, proc.stdout[-4000:],
+                proc.stderr[-8000:], json.dumps(flags, indent=1)))
+    return secs, start
+
+
+def phase13_check(root, config, refs, not_produced, traced,
+                  summary_record=None):
+    """The sweep's artifacts: each sub-job done (flag, final outcfg, its
+    tracker row, the job database), its raw EC file and model against
+    the in-process job of the same mode (refs: mode -> (state, counts);
+    parity byte-equal, production byte-equal or within PRODUCTION_REL),
+    the planted pairs in its top 8 long-range ECs, the summary table's
+    rows and N_eff, and, if traced, its kernel events against the
+    in-process job's launches. Returns ({mode: {kernel: events}} (empty
+    if untraced), {mode: record})."""
+    import sqlite3
+
+    import pandas as pd
+    import yaml
+
+    from evcouplings_torch.couplings.model import CouplingsModel
+    from evcouplings_torch.utils.config import read_config_file
+    from evcouplings_torch.utils.helpers import PersistentDict
+
+    prefix = config["global"]["prefix"]
+    conn = sqlite3.connect(os.path.join(root, "jobs.db"))
+    conn.row_factory = sqlite3.Row
+    rows = {r["job_id"]: dict(r) for r in conn.execute(
+        "SELECT * FROM evcouplings_jobs")}
+    conn.close()
+    assert set(rows) == {"phase13" + m for m in config["batch"]}, set(rows)
+    # the local submitter's job database: one YAML entry per command
+    db = [yaml.safe_load(v) for v in PersistentDict(
+        prefix + "_job_database.txt").values()]
+    assert sorted((e["name"], e["status"]) for e in db) == sorted(
+        (prefix + m, "done") for m in config["batch"]), db
+    summary = pd.read_csv(prefix + "_job_statistics_summary.csv")
+    assert len(summary) == len(config["batch"]), summary
+    want8 = {(i + 1, j + 1) for i, j in PLANTED}
+    events, records = {}, {}
+    for mode in config["batch"]:
+        sub = prefix + mode
+        name = mode.lstrip("_")
+        ref_state, ref_counts = refs[name]
+        assert os.path.isfile(sub + ".done"), sub
+        state = read_config_file(sub + "_final.outcfg")
+        row = rows["phase13" + mode]
+        assert row["status"] == "done", row
+        assert set(json.loads(row["results"])) == set(state), (
+            set(json.loads(row["results"])) ^ set(state))
+        identical = {}
+        for key in ("raw_ec_file", "model_file"):
+            with open(state[key], "rb") as a, open(ref_state[key], "rb") as b:
+                identical[key] = a.read() == b.read()
+        got_m, want_m = (CouplingsModel(s["model_file"])
+                         for s in (state, ref_state))
+        rel = {a: _rel_fro(getattr(got_m, a), getattr(want_m, a))
+               for a in ("J_ij", "h_i")}
+        if name == "parity":
+            assert all(identical.values()), (identical, rel)
+        else:
+            assert max(rel.values()) <= PRODUCTION_REL, rel
+        longrange = pd.read_csv(state["ec_longrange_file"])
+        top8 = set(zip(longrange.i.values[:8], longrange.j.values[:8]))
+        assert top8 == want8, (mode, sorted(top8))
+        srow = summary[summary.prefix.map(os.path.basename)
+                       == os.path.basename(sub)]
+        assert len(srow) == 1, (mode, summary.prefix.tolist())
+        assert abs(float(srow.N_eff.iloc[0])
+                   - float(state["effective_sequences"])) <= 5e-4, (
+            mode, float(srow.N_eff.iloc[0]), state["effective_sequences"])
+        busy = None
+        if traced:
+            events[name], busy = trace_kernel_counts(
+                os.path.join(root, "traces", name))
+            for k in KERNEL_SYMBOLS:
+                assert events[name][k] == ref_counts[k], (
+                    mode, k, events[name], ref_counts)
+        runtime = pd.read_csv(state["runtime_file"])
+        with open(os.path.join(root, "spawn_" + name + ".txt")) as f:
+            spawn = float(f.read())
+        records[name] = dict(
+            identical=identical, rel_fro=rel,
+            stages=dict(zip(runtime.scope, runtime.seconds)),
+            device_busy_s=busy,
+            spawn_to_first_stage_s=float(runtime.start.min()) - spawn,
+            final_outcfg_at=os.path.getmtime(sub + "_final.outcfg"),
+            N_eff=float(state["effective_sequences"]))
+    pdf = prefix + "_job_statistics_summary.pdf"
+    if summary_record is None:
+        assert os.path.isfile(pdf), pdf
+    else:
+        assert not os.path.exists(pdf), pdf
+        with open(summary_record) as f:
+            drawn = set(f.read().split())
+        assert drawn == {pdf}, drawn
+        not_produced.add("summarize protein_monomer: {} (matplotlib is not "
+                         "installed on this machine)".format(
+                             os.path.basename(pdf)))
+    return events, records
+
+
+def phase13(tmp, full, align_kw, deltas, refs, not_produced):
+    """The sweep through the port's command at full width, untraced and
+    then traced (see the section comment); refs: mode -> (6b's in-process
+    state, its launches). Returns the traced sweep's kernel events by
+    kernel (both sub-jobs)."""
+    import shutil
+
+    for traced in (False, True):
+        kind = "traced" if traced else "untraced"
+        root = os.path.join(tmp, "phase13", kind)
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        config = phase13_config(root, full, align_kw, deltas, traced)
+        env, record = {}, None
+        if not have_matplotlib():
+            record = os.path.join(root, "summary_plots_not_drawn.txt")
+            env["EVCOUPLINGS_SUMMARIZE_APP"] = (
+                "{} {} --phase13-summary {}".format(
+                    sys.executable, os.path.abspath(__file__), record))
+        secs, start = phase13_run(root, config, env, traced)
+        events, records = phase13_check(root, config, refs, not_produced,
+                                        traced, summary_record=record)
+        prefix = config["global"]["prefix"]
+        app_start = os.path.getmtime(prefix + "_config.txt") - start
+        # the summarizer after the later sub-job: its final outcfg to the
+        # summary table's last write
+        summary_s = (
+            os.path.getmtime(prefix + "_job_statistics_summary.csv")
+            - max(r["final_outcfg_at"] for r in records.values()))
+        for name, rec in records.items():
+            log("phase 13 {} sub-job {}: stages {}, device busy in their "
+                "traces {} (6b's in-process job, untraced: {}); spawn to "
+                "first stage {:.2f} s (from the time its shell wrote before "
+                "starting python); raw EC and model byte-equal to 6b's "
+                "in-process job {}; relative Frobenius difference {}; N_eff "
+                "{:.3f}; kernel events in its traces {} (6b's launches "
+                "{})".format(
+                    kind, name, json.dumps(rec["stages"]),
+                    json.dumps(rec["device_busy_s"]),
+                    json.dumps(runtime_seconds(refs[name][0])),
+                    rec["spawn_to_first_stage_s"],
+                    json.dumps(rec["identical"]), json.dumps(rec["rel_fro"]),
+                    rec["N_eff"], json.dumps(events.get(name)),
+                    json.dumps({k: refs[name][1][k]
+                                for k in KERNEL_SYMBOLS})))
+        log("phase 13 {} the command (`python -m evcouplings_torch.utils."
+            "app`, two sub-jobs at once, then the summarizer): {:.2f} s of "
+            "wall time; start to its config write (its import) {:.2f} s; "
+            "the later sub-job's end to the summary table {:.2f} s; both "
+            "sub-jobs done in the sqlite tracker and the job database, the "
+            "planted pairs in each top 8, the summary table's N_eff each "
+            "sub-job's own".format(kind, secs, app_start, summary_s))
+    return {k: sum(e[k] for e in events.values()) for k in KERNEL_SYMBOLS}
+
+
 def run_job(config):
     """One pipeline job through execute_wrapped, its kernel launches
     counted from zero, and its final state; every file the final outcfg
@@ -3108,11 +3393,14 @@ def main():
                       precision="production", iterations=20,
                       steps_per_call=None)
     pipeline_launches = dict.fromkeys(kernel_counts(), 0)
+    # each mode's job and launches: phase 13's sub-jobs are held to them
+    full_jobs = {}
     for mode, couplings_kw in (("parity", sample_couplings),
                                ("production", production)):
         prefix = os.path.join(tmp, "full_" + mode, "job")
         state, counts, secs = run_job(pipeline_config(
             prefix, full, "TARGET", align_kw, couplings_kw))
+        full_jobs[mode] = (state, counts)
         if mode == "parity":
             # phase 12 runs this job's couplings stage again, sharded
             full_state = state
@@ -3244,6 +3532,18 @@ def main():
                                common["lambda_J"], rows)
     log("phase 12 took {:.1f} s".format(time.perf_counter() - t12))
 
+    # ---- phase 13: the port's command runs 6b's two jobs as a batch sweep,
+    # each sub-job in its own process on the card, then the summarizer
+    t13 = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase13_launches = phase13(
+        tmp, full, align_kw,
+        {"parity": sample_couplings, "production": production}, full_jobs,
+        not_produced)
+    log("phase 13 kernel events in the sub-jobs' traces {}; phase 13 took "
+        "{:.1f} s".format(json.dumps(phase13_launches),
+                          time.perf_counter() - t13))
+
     for k, row in rows.items():
         row["distributed_launches"] = {
             sub: counts[k] for sub, counts in phase12_launches.items()}
@@ -3253,6 +3553,7 @@ def main():
         row["search_job_launches"] = phase9_launches[k]
         row["fold_job_launches"] = phase10_launches[k]
         row["complex_job_launches"] = phase11_launches[k]
+        row["app_job_launches"] = phase13_launches[k]
     for item in sorted(not_produced):
         log("phase 6 not produced:", item)
     log(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4")]}))
@@ -3266,4 +3567,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase12-worker"]:
         sys.exit(phase12_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase13-summary"]:
+        sys.exit(phase13_summary_worker(*sys.argv[2:]))
     sys.exit(main())

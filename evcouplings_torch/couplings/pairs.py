@@ -389,12 +389,12 @@ class LinearLogisticModel:
     """Binary logistic-regression evaluator (native, no sklearn).
 
     Evaluates decision(X) = X @ coef + intercept and
-    p(true) = sigmoid(decision), with the parameters of the serialized
-    classifier dict schema (training metadata is not kept: the port
-    only scores).
+    p(true) = sigmoid(decision). Round-trips the serialized classifier
+    dict schema, carrying sklearn-only training settings unread.
     """
 
-    def __init__(self, coef, intercept, classes=(0, 1)):
+    def __init__(self, coef, intercept, classes=(0, 1),
+                 classifier_settings=None, n_iter=None):
         coef_arr = np.asarray(coef, dtype=float)
         intercept_arr = np.asarray(intercept, dtype=float).reshape(-1)
         classes = list(classes)
@@ -412,6 +412,10 @@ class LinearLogisticModel:
         self.coef = coef_arr.reshape(-1)
         self.intercept = float(intercept_arr[0])
         self.classes = classes
+        self.classifier_settings = classifier_settings or {}
+        # sklearn training metadata, carried so serialize(deserialize)
+        # is lossless on the schema
+        self.n_iter = list(n_iter) if n_iter is not None else [0]
 
     @classmethod
     def from_dict(cls, params):
@@ -422,8 +426,25 @@ class LinearLogisticModel:
             coef=settings["coef_"],
             intercept=settings["intercept_"],
             classes=settings.get("classes_", [0, 1]),
+            classifier_settings=params.get("classifier_settings"),
+            n_iter=settings.get("n_iter_"),
         )
         return model, params.get("feature_names")
+
+    def to_dict(self, feature_names=None):
+        """Serialize into the YAML schema."""
+        params = {
+            "classifier_settings": dict(self.classifier_settings),
+            "model_settings": {
+                "classes_": list(self.classes),
+                "intercept_": [self.intercept],
+                "coef_": [self.coef.tolist()],
+                "n_iter_": list(self.n_iter),
+            },
+        }
+        if feature_names is not None:
+            params["feature_names"] = list(feature_names)
+        return params
 
     def decision_function(self, X):
         return np.asarray(X, dtype=float) @ self.coef + self.intercept
@@ -434,6 +455,35 @@ class LinearLogisticModel:
         from scipy.special import expit
 
         return expit(self.decision_function(X))
+
+
+def logreg_classifier_to_dict(classifier, feature_names=None):
+    """Serialize a logistic-regression classifier into the YAML-able
+    dict schema.
+
+    Accepts a LinearLogisticModel, or any object with the
+    sklearn-style attributes classes_/intercept_/coef_/n_iter_ and
+    get_params() (e.g. an actual sklearn LogisticRegression).
+    """
+    if isinstance(classifier, LinearLogisticModel):
+        return classifier.to_dict(feature_names=feature_names)
+
+    params = {
+        "classifier_settings": classifier.get_params(),
+        "model_settings": {
+            attrib: np.asarray(getattr(classifier, attrib)).tolist()
+            for attrib in ["classes_", "intercept_", "coef_", "n_iter_"]
+        },
+    }
+    if feature_names is not None:
+        params["feature_names"] = list(feature_names)
+    return params
+
+
+def logreg_classifier_from_dict(params):
+    """Deserialize the classifier dict schema into a
+    (LinearLogisticModel, feature_names) pair (sklearn-free)."""
+    return LinearLogisticModel.from_dict(params)
 
 
 class LogisticRegressionScorer:

@@ -4,10 +4,12 @@ written in Triton for Hopper.
 
 Replaces the TPU kernels evcouplings_tpu/ops/plm_update.py::_update_kernel
 (K2, launched by fused_adam_update) and ::_update_kernel_presym (K3,
-launched by fused_adam_update_presym). One @triton.jit function serves
-both: the constexpr flag PRESYM selects whether the caller passes the raw
-gradient GEMM output dJh (K2: the transposed tile is read from the same
-array) or S = dJh + dJh^T already built (K3).
+launched by fused_adam_update_presym). Both kernels are thin @triton.jit
+entry points over one @triton.jit body, _adam_update_tile, whose constexpr
+flag PRESYM selects whether the caller passes the raw gradient GEMM output
+dJh (K2, _adam_update_kernel: the transposed tile is read from the same
+array) or S = dJh + dJh^T already built (K3, _adam_update_presym_kernel).
+The two entry points give K2 and K3 symbols of their own in a trace.
 
 Per (BI, BJ) tile of the (Lq, Lq) matrices:
 
@@ -30,8 +32,9 @@ fixed-shape torch.sum (no float atomics, so the gradient norm in the
 iteration table is the same from run to run).
 
 This module imports no triton at load time (CPU hosts have none): the
-kernel body is a plain function that names `tl`, and _jit() binds the
-module global `tl` to triton.language and jits it at the first launch.
+body and the entry points are plain functions that name `tl`, and _jit()
+binds the module global `tl` to triton.language and jits them at the first
+launch (the body first, so that the entry points call its jitted form).
 """
 
 from __future__ import annotations
@@ -49,10 +52,10 @@ BLOCK_I = 64
 BLOCK_J = 64
 
 tl = None       # triton.language, bound by _jit() at the first launch
-_jitted = None
+_jitted = None  # {presym: jitted entry point}
 
 
-def _adam_update_kernel(
+def _adam_update_tile(
     a_ptr, lda, p_ptr, mu_ptr, nu_ptr,
     p_out_ptr, mu_out_ptr, nu_out_ptr, jeff_ptr, part_ptr,
     lq, q, lambda_j, lr, bc1i, bc2i,
@@ -100,15 +103,45 @@ def _adam_update_kernel(
              tl.sum(tl.sum(g * g, axis=1), axis=0))
 
 
-def _jit():
-    global tl, _jitted
+def _adam_update_kernel(
+    a_ptr, lda, p_ptr, mu_ptr, nu_ptr,
+    p_out_ptr, mu_out_ptr, nu_out_ptr, jeff_ptr, part_ptr,
+    lq, q, lambda_j, lr, bc1i, bc2i,
+    B1: tl.constexpr, B2: tl.constexpr, EPS: tl.constexpr,
+    BI: tl.constexpr, BJ: tl.constexpr,
+):
+    # K2: a is dJh
+    _adam_update_tile(
+        a_ptr, lda, p_ptr, mu_ptr, nu_ptr,
+        p_out_ptr, mu_out_ptr, nu_out_ptr, jeff_ptr, part_ptr,
+        lq, q, lambda_j, lr, bc1i, bc2i, B1, B2, EPS, False, BI, BJ)
+
+
+def _adam_update_presym_kernel(
+    a_ptr, lda, p_ptr, mu_ptr, nu_ptr,
+    p_out_ptr, mu_out_ptr, nu_out_ptr, jeff_ptr, part_ptr,
+    lq, q, lambda_j, lr, bc1i, bc2i,
+    B1: tl.constexpr, B2: tl.constexpr, EPS: tl.constexpr,
+    BI: tl.constexpr, BJ: tl.constexpr,
+):
+    # K3: a is S = dJh + dJh^T
+    _adam_update_tile(
+        a_ptr, lda, p_ptr, mu_ptr, nu_ptr,
+        p_out_ptr, mu_out_ptr, nu_out_ptr, jeff_ptr, part_ptr,
+        lq, q, lambda_j, lr, bc1i, bc2i, B1, B2, EPS, True, BI, BJ)
+
+
+def _jit(presym):
+    global tl, _jitted, _adam_update_tile
     if _jitted is None:
         import triton
         import triton.language
 
         tl = triton.language
-        _jitted = triton.jit(_adam_update_kernel)
-    return _jitted
+        _adam_update_tile = triton.jit(_adam_update_tile)
+        _jitted = {False: triton.jit(_adam_update_kernel),
+                   True: triton.jit(_adam_update_presym_kernel)}
+    return _jitted[presym]
 
 
 def _check(name, t, shape, dtype, device):
@@ -149,7 +182,7 @@ def _launch(a, P, mu, nu, bc1i, bc2i, q, lambda_j, lr, out_dtype, presym):
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("out_dtype must be bfloat16 or float32")
 
-    kernel = _jit()
+    kernel = _jit(bool(presym))
     grid = (-(-lq // BLOCK_I), -(-lq // BLOCK_J))
     P2 = torch.empty_like(P)
     mu2 = torch.empty_like(mu)
@@ -161,7 +194,7 @@ def _launch(a, P, mu, nu, bc1i, bc2i, q, lambda_j, lr, out_dtype, presym):
         kernel[grid](
             a, a.stride(0), P, mu, nu, P2, mu2, nu2, J2, partial,
             lq, q, float(lambda_j), float(lr), float(bc1i), float(bc2i),
-            B1=ADAM_B1, B2=ADAM_B2, EPS=ADAM_EPS, PRESYM=bool(presym),
+            B1=ADAM_B1, B2=ADAM_B2, EPS=ADAM_EPS,
             BI=BLOCK_I, BJ=BLOCK_J, num_warps=4,
         )
     # fixed-shape reduction of the per-program partials: deterministic

@@ -204,6 +204,31 @@ def _search_config(tmp_path, stages=("align", "couplings", "compare",
     return config, files
 
 
+def _tracker_rows(db_file, root):
+    """The job rows of a sqlite tracker file without the time and host
+    columns, the run's root replaced by a placeholder and the JSON
+    columns parsed."""
+    import json
+    import sqlite3
+
+    conn = sqlite3.connect(str(db_file))
+    conn.row_factory = sqlite3.Row
+    try:
+        rows = [dict(r) for r in conn.execute(
+            "SELECT * FROM evcouplings_jobs ORDER BY key")]
+    finally:
+        conn.close()
+    out = []
+    for row in rows:
+        row = {k: (v.replace(root, "<root>") if isinstance(v, str) else v)
+               for k, v in row.items()
+               if not k.startswith("time_") and k != "runner_id"}
+        for k in ("config", "results"):
+            row[k] = json.loads(row[k])
+        out.append(row)
+    return out
+
+
 # the parts of ROADMAP A19 that are ported (A19a), as edits of _config
 SEARCH_EDITS = {("compare", "by_alignment", True),
                 ("align", "protocol", "standard"),
@@ -224,8 +249,26 @@ def test_unported_parts_name_their_item(tmp_path, stages, edit, item):
     runs, and its outcfg names their outputs. So is the protein_complex
     pipeline (A19c): its stages are align_1, align_2 and concatenate
     before the monomer tail (a monomer stage list is refused), and the
-    alignment stages of a complex job run. The sql tracker (A19d) still
-    raises naming its item."""
+    alignment stages of a complex job run. So is the sql tracker (A19d):
+    the job through both packages, each with its own sqlite file, leaves
+    rows equal apart from the time and host columns (with each run's
+    root replaced by a placeholder)."""
+    if edit == ("management", "tracker_type", "sql"):
+        rows = {}
+        for tag, runtime in (("torch", pipeline), ("jax", jax_pipeline)):
+            root = tmp_path / tag
+            root.mkdir()
+            config = _config(root, stages=stages, management={
+                "tracker_type": "sql", "job_id": "job1",
+                "connection_string": "sqlite:///" + str(root / "jobs.db")})
+            state = runtime.execute_wrapped(**config)
+            assert state["focus_sequence"] == "TARGET_SEQ/11-28"
+            rows[tag] = _tracker_rows(root / "jobs.db", str(root))
+        assert [r["status"] for r in rows["torch"]] == ["done"]
+        assert rows["torch"][0]["results"]["alignment_file"].startswith(
+            "<root>")
+        assert rows["torch"] == rows["jax"]
+        return
     if edit == ("pipeline", None, "protein_complex"):
         import complex_fixtures as cf
 

@@ -38,6 +38,7 @@ PORT_MODULES = [
     "evcouplings_torch.complex.protocol",
     "evcouplings_torch.complex.similarity",
     "evcouplings_torch.convert",
+    "evcouplings_torch.couplings",
     "evcouplings_torch.couplings.fitter",
     "evcouplings_torch.couplings.mapping",
     "evcouplings_torch.couplings.mean_field",
@@ -76,39 +77,34 @@ PORT_MODULES = [
     "evcouplings_torch.ops.weights",
     "evcouplings_torch.parallel",
     "evcouplings_torch.parallel.comm_accounting",
+    "evcouplings_torch.utils",
+    "evcouplings_torch.utils.app",
+    "evcouplings_torch.utils.batch",
     "evcouplings_torch.utils.calculations",
     "evcouplings_torch.utils.config",
     "evcouplings_torch.utils.constants",
     "evcouplings_torch.utils.helpers",
     "evcouplings_torch.utils.pipeline",
+    "evcouplings_torch.utils.summarize",
     "evcouplings_torch.utils.system",
     "evcouplings_torch.utils.tracing",
     "evcouplings_torch.utils.tracker",
     "evcouplings_torch.utils.tracker.base",
+    "evcouplings_torch.utils.tracker.mongodb",
+    "evcouplings_torch.utils.tracker.sql",
+    "evcouplings_torch.utils.update_database",
     "evcouplings_torch.visualize",
     "evcouplings_torch.visualize.misc",
     "evcouplings_torch.visualize.mutations",
     "evcouplings_torch.visualize.pairs",
     "evcouplings_torch.visualize.parameters",
     "evcouplings_torch.visualize.pymol",
+    # installs the evcouplings alias on import, as its JAX twin does: its
+    # names are compared in a subprocess (tests/test_torch_compat_alias.py)
+    "evcouplings_torch.compat",
 ]
 
 
-# public names of a JAX twin that the port does not have yet, each with
-# the ROADMAP item that brings it
-QUEUED_NAMES = {
-    "evcouplings_torch.couplings.pairs": {           # A19d
-        "logreg_classifier_from_dict", "logreg_classifier_to_dict"},
-    "evcouplings_torch.utils.helpers": {             # A19d
-        "PersistentDict", "Progressbar", "retry"},
-    "evcouplings_torch.utils.tracker": {             # A19d
-        "TRACKER_MAX_NUM_RETRIES", "TRACKER_PASSWORD_KEY",
-        "TRACKER_RETRY_WAIT", "TRACKER_USERNAME_KEY", "environ",
-        "ResultTracker"},
-    "evcouplings_torch.utils.tracker.base": {        # A19d
-        "DEFAULT_FILE_COLLECTION", "DEFAULT_RESULT_COLLECTION",
-        "ResultTracker"},
-}
 # public names of a JAX twin that have no meaning in the port, each with
 # the reason
 NO_TORCH_COUNTERPART = {
@@ -162,19 +158,18 @@ def _public_names(module):
 
 @pytest.mark.parametrize("name", [
     m for m in PORT_MODULES if not m.startswith(("evcouplings_torch.kernels",
-                                                 "evcouplings_torch.convert"))])
+                                                 "evcouplings_torch.convert",
+                                                 "evcouplings_torch.compat"))])
 def test_public_names_match_the_jax_twin(name):
     """Each ported module's public names are its JAX twin's, apart from
-    the names still queued in ROADMAP.md (QUEUED_NAMES), those with no
-    meaning in the port (NO_TORCH_COUNTERPART) and the port's own
-    additions (PORT_ADDED_NAMES)."""
+    those with no meaning in the port (NO_TORCH_COUNTERPART) and the
+    port's own additions (PORT_ADDED_NAMES)."""
     import importlib
 
     port = _public_names(importlib.import_module(name))
     twin = _public_names(importlib.import_module(
         name.replace("evcouplings_torch", "evcouplings_tpu")))
-    assert twin - port == (QUEUED_NAMES.get(name, set())
-                           | NO_TORCH_COUNTERPART.get(name, set()))
+    assert twin - port == NO_TORCH_COUNTERPART.get(name, set())
     assert port - twin == PORT_ADDED_NAMES.get(name, set())
 
 
@@ -185,7 +180,7 @@ def test_import_leaves_jax_out():
         "for m in {!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('evcouplings_tpu') or m.startswith('jaxlib')"
-        " or m.startswith('matplotlib')]\n"
+        " or m.startswith('matplotlib') or m.startswith('pymongo')]\n"
         "assert not bad, bad\n"
         "print('ok')\n".format(PORT_MODULES))
     env = dict(os.environ, PYTHONPATH=REPO)
