@@ -95,6 +95,9 @@ RTOL, ATOL = 1e-4, 1e-5
 # iterations up to which the asymmetric golden fit (golden3) on the card
 # is held to the gate against the port's host path (phase 7c)
 GOLDEN3_GATE_ITERATIONS = 12
+# bound on phase 5c's process (three fits at full width, ~10 s, and its
+# imports)
+PHASE5C_RUN_S = 300
 
 
 def log(*parts):
@@ -525,6 +528,245 @@ def profile_device_time(what, fn, host_ops=True):
                               for ms, c, k in top)))
     return {"wall_s": wall, "busy_s": busy / 1e3,
             "launches": sum(c for _, c, _ in kern)}
+
+
+def peak_memory(fn):
+    """fn() with the caching allocator emptied and its peak reset just
+    before: (fn's result, bytes reserved and bytes allocated at the peak
+    above what was there before, the bytes live before)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated()
+    held = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, torch.cuda.max_memory_reserved() - held,
+            torch.cuda.max_memory_allocated() - live, live)
+
+
+def phase5c(tmp, a2m, common, modes):
+    """Phase 5c in a process of its own (`chip_smoke.py --phase5c TMP A2M
+    COMMON MODES`), where no tensor of the earlier phases is live: their
+    partly used cache segments would take part of a fit's blocks and hide
+    them from the reserved peak. Its lines are logged here; it fails the
+    script when a peak is above its estimate."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phase5c", tmp, a2m,
+         json.dumps(common), json.dumps(modes)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=PHASE5C_RUN_S)
+    for line in out.stdout.splitlines():
+        if line.startswith("phase 5c"):
+            log(line)
+    assert out.returncode == 0, out.stdout[-4000:]
+
+
+def phase5c_worker(tmp, a2m, common, modes):
+    sys.path.insert(0, HERE)
+    phase5c_peak_memory(tmp, a2m, json.loads(common), json.loads(modes))
+    return 0
+
+
+def phase5c_peak_memory(tmp, a2m, common, modes):
+    """Each main-path fit once more through run_plm, its peak device
+    memory measured around the fit as run_plm calls it, beside the
+    estimate the "auto" router computed for it
+    (ops/plm.estimate_fit_hbm_bytes). A reserved peak above its estimate
+    fails: "auto" could then pick a fit that does not fit on the card.
+    The parity fit runs 8 iterations, so that its steps from the sixth on
+    carry a full LBFGS history (m=5)."""
+    import evcouplings_torch.couplings.fitter as fitter
+    from evcouplings_torch.couplings.fitter import run_plm
+
+    runs = [(mode, dict(kw, iterations=max(kw["iterations"], 8)))
+            for mode, kw in modes] + [
+        ("asymmetric", dict(iterations=20, parametrization="asymmetric",
+                            solver="adam", compute_dtype="bfloat16"))]
+    real = {name: getattr(fitter, name) for name in (
+        "fit_plm", "fit_plm_asym")}
+    real_estimate = fitter.ops_plm.estimate_fit_hbm_bytes
+    out = {}
+    for mode, kw in runs:
+        seen = {}
+
+        def estimate(*args, **kwargs):
+            seen["estimate"] = real_estimate(*args, **kwargs)
+            return seen["estimate"]
+
+        def measured(fit):
+            def call(*args, **kwargs):
+                res, seen["reserved"], seen["allocated"], seen["live"] = \
+                    peak_memory(lambda: fit(*args, **kwargs))
+                return res
+            return call
+
+        fitter.ops_plm.estimate_fit_hbm_bytes = estimate
+        for name, fit in real.items():
+            setattr(fitter, name, measured(fit))
+        try:
+            _, secs = timed(lambda: run_plm(
+                a2m, os.path.join(tmp, mode + "_peak_ECs.txt"),
+                os.path.join(tmp, mode + "_peak.model"), **common, **kw))
+        finally:
+            fitter.ops_plm.estimate_fit_hbm_bytes = real_estimate
+            for name, fit in real.items():
+                setattr(fitter, name, fit)
+        out[mode] = seen
+        log("phase 5c peak device memory of the {} fit ({}): reserved {} B, "
+            "allocated {} B above the {} B live before it; "
+            "estimate_fit_hbm_bytes {} B (reserved / estimate {:.3f}); "
+            "run_plm {:.2f} s".format(
+                mode, json.dumps(kw), seen["reserved"], seen["allocated"],
+                seen["live"], seen["estimate"],
+                seen["reserved"] / seen["estimate"], secs))
+    for mode, m in out.items():
+        # reserved below allocated: cache segments from before took blocks
+        assert m["allocated"] <= m["reserved"] <= m["estimate"], (mode, m)
+    return out
+
+
+def allocations_at_peak(top=12):
+    """The allocator's recorded history (torch.cuda.memory) replayed to its
+    largest total: the blocks live there, summed by the port's innermost
+    frames that allocated them, largest first."""
+    import collections
+
+    import torch
+
+    trace = torch.cuda.memory._snapshot()["device_traces"][0]
+    total = best = best_at = 0
+    live = {}
+    for i, ev in enumerate(trace):
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            total += ev["size"]
+        elif ev["action"] == "free_completed" and ev["addr"] in live:
+            total -= live.pop(ev["addr"])["size"]
+        if total > best:
+            best, best_at = total, i
+    live = {}
+    for ev in trace[:best_at + 1]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+        elif ev["action"] == "free_completed":
+            live.pop(ev["addr"], None)
+    groups = collections.Counter()
+    for ev in live.values():
+        frames = [f for f in ev.get("frames", [])
+                  if "evcouplings_torch" in f["filename"]][:2]
+        groups[" < ".join("{}:{}".format(
+            os.path.basename(f["filename"]), f["line"])
+            for f in frames) or "?"] += ev["size"]
+    return best, groups.most_common(top)
+
+
+def peak_memory_sweep():
+    """`python3 chip_smoke.py --peak-memory`: the peak device memory of
+    every fit route (parity LBFGS, Adam with and without the fused
+    epilogue, FISTA, the asymmetric Adam and per-site LBFGS fits) at the
+    phase-5 shape (N=16384, L=160) and at L=400 (N=2048), then of the
+    production and asymmetric Adam fits at the largest L whose estimate
+    meets the router's limit for them on this card (0.9 x the budget for
+    the symmetric fit, the budget for the asymmetric one; N=16384), each
+    beside ops/plm.estimate_fit_hbm_bytes for its configuration and the
+    blocks live at its peak by the frame that allocated them. Exits 1
+    when a reserved peak is above its estimate or a fit runs out of
+    device memory."""
+    import torch
+
+    from evcouplings_torch.couplings.fitter import _symmetric_block_size
+    from evcouplings_torch.kernels import _build
+    from evcouplings_torch.ops.plm import (
+        PlmConfig, device_hbm_budget, estimate_fit_hbm_bytes, fit_plm,
+    )
+    from evcouplings_torch.ops.plm_sites import fit_plm_asym
+
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    _build.build_all(["seqdot", "seqdot_host"])
+    over = []
+
+    def measure(name, par, L, n, cfg):
+        codes = synthetic_codes(np.random.default_rng(SEED + L), n, L, 21,
+                                families=64, mutate=0.15, gap_rows=0.1,
+                                missing_rows=0.0)
+        codes = np.where(codes < 0, -1, codes).astype(np.int8)
+        fit = fit_plm_asym if par == "asymmetric" else fit_plm
+        est = estimate_fit_hbm_bytes(n, L, 21, cfg, par)
+        torch.cuda.memory._record_memory_history(max_entries=200000)
+        try:
+            (_, reserved, allocated, live), secs = timed(
+                lambda: peak_memory(lambda: fit(codes, np.ones(n), 21, cfg,
+                                                device="cuda")))
+        except torch.OutOfMemoryError as e:
+            torch.cuda.memory._record_memory_history(enabled=None)
+            log("peak memory {} fit L={} N={}: out of device memory under "
+                "an estimate of {} B: {}".format(name, L, n, est,
+                                                 str(e).splitlines()[0]))
+            over.append((name, L))
+            return
+        traced, groups = allocations_at_peak(top=30)
+        torch.cuda.memory._record_memory_history(enabled=None)
+        log("peak memory {} fit L={} N={} ({:.2f} s): reserved {} B, "
+            "allocated {} B above {} B live; estimate {} B (reserved "
+            "/ estimate {:.3f}, reserved / allocated {:.3f}); the "
+            "allocator's history at its peak {} B: {}".format(
+                name, L, n, secs, reserved, allocated, live, est,
+                reserved / est, reserved / allocated, traced,
+                json.dumps(groups)))
+        if reserved > est:
+            over.append((name, L))
+
+    def production(n, iterations=5):
+        return dict(solver="adam", dtype="bfloat16", max_iter=iterations,
+                    block_size=_symmetric_block_size("bfloat16", n))
+
+    def asymmetric_adam(iterations=5):
+        return dict(solver="adam", dtype="bfloat16", max_iter=iterations,
+                    block_size=1024)
+
+    def common(L):
+        return dict(lambda_J=0.01 * 20 * (L - 1), conv_tol=0.0)
+
+    for L, n, iterations in ((160, 16384, 8), (400, 2048, 7)):
+        fits = (
+            ("parity", "symmetric", dict(
+                solver="lbfgs", dtype="float32", precision="highest",
+                max_iter=iterations, block_size=512)),
+            ("production", "symmetric", dict(production(n),
+                                             fused_update="on")),
+            ("unfused Adam", "symmetric", dict(production(n),
+                                               fused_update="off")),
+            ("FISTA", "symmetric", dict(solver="fista", dtype="float32",
+                                        max_iter=3, block_size=512,
+                                        lambda_group=1.0)),
+            ("asymmetric Adam", "asymmetric", asymmetric_adam()),
+            ("per-site LBFGS", "asymmetric", dict(
+                solver="lbfgs", dtype="float32", max_iter=4,
+                block_size=1024)),
+        )
+        for name, par, kw in fits:
+            measure(name, par, L, n, PlmConfig(**common(L), **kw))
+    # near the router's limit, where the (Lq, Lq_aug) arrays dominate
+    budget = device_hbm_budget("cuda")
+    n = 16384
+    for name, par, kw, limit in (
+            ("production", "symmetric", dict(production(n, 3),
+                                             fused_update="on"),
+             0.9 * budget),
+            ("asymmetric Adam", "asymmetric", asymmetric_adam(3), budget)):
+        L = 400
+        while estimate_fit_hbm_bytes(n, L + 20, 21, PlmConfig(
+                **common(L + 20), **kw), par) <= limit:
+            L += 20
+        measure(name, par, L, n, PlmConfig(**common(L), **kw))
+    log("peak memory: reserved above the estimate for {}".format(
+        over or "no fit"))
+    return 1 if over else 0
 
 
 def timed(fn):
@@ -3262,6 +3504,10 @@ def main():
             a2m, os.path.join(tmp, mode + "_prof_ECs.txt"),
             os.path.join(tmp, mode + "_prof.model"), **common, **kw))
 
+    # ---- phase 5c: each fit's peak device memory against the estimate
+    # the "auto" router reads
+    phase5c(tmp, a2m, common, modes)
+
     # per-step time of the production Adam step, fused epilogue on vs off
     # (two fits each, alternating; steps 5..19 of each fit)
     codes_fit = np.where(codes_np < 0, -1, codes_np)
@@ -3569,4 +3815,8 @@ if __name__ == "__main__":
         sys.exit(phase12_worker(*sys.argv[2:]))
     if sys.argv[1:2] == ["--phase13-summary"]:
         sys.exit(phase13_summary_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase5c"]:
+        sys.exit(phase5c_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--peak-memory"]:
+        sys.exit(peak_memory_sweep())
     sys.exit(main())

@@ -12,7 +12,14 @@ its plain PyTorch version.
 
 from evcouplings_torch._device import resolve_device
 
-__all__ = ["resolve_device", "BailoutException"]
+__version__ = "0.1.0"
+
+# the JAX package's subpackages (a star-import loads each on demand; a
+# plain import loads none of them), plus device selection
+__all__ = [
+    "align", "compare", "complex", "couplings", "fold", "mutate",
+    "visualize", "utils", "ops", "parallel", "resolve_device",
+]
 
 
 class BailoutException(Exception):

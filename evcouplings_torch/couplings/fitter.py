@@ -239,7 +239,7 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
 
     # O(N^2 L) reweighting (gaps participate in identity): K1 on the card,
     # split over the "data" ranks on a mesh
-    codes_d = device_codes(codes, device)
+    codes_d = device_codes(codes, device=device)
     if mesh is None:
         cluster_sizes = num_cluster_members(codes_d, theta)
     else:
@@ -302,7 +302,16 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
     # axis replicates the symmetric fit's rows, so only "data" divides it)
     if parametrization in ("auto", "symmetric"):
         sym_cfg = PlmConfig(solver=solver or sym_default_solver,
-                            dtype=compute_dtype, block_size=sym_block)
+                            lambda_group=float(lambda_g),
+                            dtype=compute_dtype, block_size=sym_block,
+                            fused_update=fused_update)
+        # the estimate counts the Adam step's epilogue as the fit runs it
+        if fused_update == "auto":
+            fused = ops_plm._resolve_fused_update(
+                sym_cfg, mesh, ops_plm._acc_dtype(
+                    ops_plm._compute_dtype(compute_dtype)), device)
+            sym_cfg = PlmConfig(**{**sym_cfg.__dict__,
+                                   "fused_update": "on" if fused else "off"})
         est = ops_plm.estimate_fit_hbm_bytes(
             N_fit, L_fit, q, sym_cfg, n_data_shards=n_data_shards)
         if est > 0.9 * budget:

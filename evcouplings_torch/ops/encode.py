@@ -10,10 +10,14 @@ it contributes neither a conditional term nor context anywhere downstream.
 import numpy as np
 import torch
 
+from evcouplings_torch._device import resolve_device
 
-def device_codes(matrix_mapped, device, dtype=torch.int8):
-    """Move an integer-coded MSA (N x L) onto `device` as int8 (enough for
+
+def device_codes(matrix_mapped, dtype=torch.int8, device=None):
+    """Move an integer-coded MSA (N x L) onto `device` (resolved as by every
+    entry point: the card unless "cpu" is asked for) as int8 (enough for
     q <= 127 symbol alphabets)."""
+    device = resolve_device(device)
     if isinstance(matrix_mapped, torch.Tensor):
         return matrix_mapped.to(device=device, dtype=dtype).contiguous()
     return torch.as_tensor(

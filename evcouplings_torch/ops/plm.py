@@ -305,51 +305,85 @@ def device_hbm_budget(device=None):
     return 16 * 1024 ** 3
 
 
+# (Lq, Lq_aug)-sized arrays a fit holds at its peak, counted from the
+# card's allocator (chip_smoke.py --peak-memory): the masters, the
+# gradient, the solver's state, the values one step builds from them and
+# the starting values fit_plm keeps while it loops; then, for LBFGS, the
+# arrays per history pair. An Adam step without the fused epilogue holds
+# the gradient's terms too: counted unless fused_update is "on" (the
+# router resolves "auto" for the fit's device and mesh first)
+_PEAK_ARRAYS = {   # (fit, solver): (arrays, arrays per history pair)
+    ("symmetric", "lbfgs"): (13, 2),
+    ("symmetric", "adam", "fused"): (13, 0),
+    ("symmetric", "adam"): (15, 0),
+    ("symmetric", "fista"): (9, 0),
+    ("asymmetric", "lbfgs"): (13, 2),
+    ("asymmetric", "adam"): (9, 0),
+}
+# (block, width) temporaries of the compute dtype one row block of the
+# value+grad pass holds at once (logits, their exponentials, the
+# residual and its factors)
+_BLOCK_TEMPORARIES = 5
+# the caching allocator's reserve over what a fit allocates: 1.01-1.37 in
+# chip_smoke.py --peak-memory, the most where differently sized row
+# blocks come and go beside few (Lq, Lq_aug) arrays
+_ALLOCATOR_SLACK = 1.35
+
+
 def estimate_fit_hbm_bytes(n, l, q, cfg, parametrization="symmetric",
                            n_data_shards=1, n_model_shards=1):
-    """Rough peak device-memory estimate of a PLM fit, in bytes.
+    """Peak device memory of a PLM fit on one rank, in bytes: what the
+    caching allocator reserves for the port's working set.
 
-    Counts the resident arrays of the chosen path (master parameters,
-    gradient, optimizer state, the grad-layout working set, codes /
-    one-hot inputs) plus 25% allocator slack; treat as +-30%.
+    The working set is _PEAK_ARRAYS arrays of (Lq, Lq_aug) masters
+    ((l_loc q, Lq_aug) in the asymmetric fit) beside the rows' working
+    set of the gradient layout: the two-phase layout's resident one-hot
+    and residuals plus a block's temporaries, or the carried layout's
+    block temporaries; then the codes, and 35% for the allocator. The
+    counts are the port's, read off the card's allocator: they exceed the
+    JAX package's (an eager step keeps its inputs while it builds its
+    outputs, where XLA reuses buffers). On an NVIDIA H100 80GB HBM3 at
+    700 W, `python3 chip_smoke.py --peak-memory` found every fit route's
+    reserved peak (parity and per-site LBFGS, Adam with and without the
+    fused epilogue, FISTA, asymmetric Adam; L=160 with N=16384 and L=400
+    with N=2048) at 0.68-0.91 of this estimate, and near the router's
+    limit on that card (N=16384) the production fit's at L=1500 (an
+    estimate of 0.9 x the budget) at 0.77 and asymmetric Adam's at L=1980
+    (an estimate of the budget) at 0.88; chip_smoke.py's phase 5c holds
+    the main path's fits to it on every run.
     """
-    f32 = 4
-    comp = 2 if cfg.dtype == "bfloat16" else 4
+    master = 8 if cfg.dtype == "float64" else 4
+    comp = {"bfloat16": 2, "float64": 8}.get(cfg.dtype, 4)
     lq = l * q
     lq_aug = _augmented_width(lq)
     n_loc = -(-n // max(1, n_data_shards))
+    block = min(cfg.block_size, n_loc)
     codes_bytes = n_loc * l
 
     if parametrization == "asymmetric":
         l_loc = -(-l // max(1, n_model_shards))
+        key = ("asymmetric", cfg.solver)
         d = l_loc * q * lq_aug
-        params = d * f32
-        grad = d * f32
-        if cfg.solver == "lbfgs":
-            opt = (2 * cfg.memory_size + 4) * d * f32
+        if cfg.grad_layout == "two_phase":
+            rows = n_loc * (lq + l_loc * q) * comp
         else:
-            opt = 2 * d * f32
-        onehot = n_loc * lq_aug * comp
-        act = cfg.block_size * (lq_aug + l_loc * q) * comp
-        total = params + grad + opt + onehot + act + codes_bytes
+            rows = _BLOCK_TEMPORARIES * block * lq_aug * comp
     else:
+        key = ("symmetric", cfg.solver)
+        if cfg.solver == "adam" and cfg.fused_update == "on":
+            key += ("fused",)
         d = lq * lq_aug
-        params = d * f32
-        grad = d * f32
-        if cfg.solver == "lbfgs":
-            opt = (2 * cfg.memory_size + 4) * d * f32
-        else:
-            opt = 2 * d * f32
-        layout = _resolve_grad_layout(
-            cfg, torch.bfloat16 if cfg.dtype == "bfloat16"
-            else torch.float32, n_loc, lq_aug)
+        layout = _resolve_grad_layout(cfg, _compute_dtype(cfg.dtype),
+                                      n_loc, lq_aug)
         if layout == "two_phase":
-            work = 2 * n_loc * lq_aug * comp
+            rows = (n_loc * (lq_aug + lq)
+                    + _BLOCK_TEMPORARIES * block * lq) * comp
         else:
-            work = d * f32 + 2 * cfg.block_size * lq_aug * comp
-        total = params + grad + opt + work + codes_bytes
+            rows = _BLOCK_TEMPORARIES * block * lq_aug * comp
 
-    return int(total * 1.25)
+    base, per_pair = _PEAK_ARRAYS[key]
+    arrays = base + per_pair * cfg.memory_size
+    return int(_ALLOCATOR_SLACK * (arrays * d * master + rows + codes_bytes))
 
 
 def make_plm_nll_vg(L, q, cfg, mesh=None):

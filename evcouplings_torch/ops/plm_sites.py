@@ -145,7 +145,12 @@ def _make_local_vg(L, q, cfg, two_phase=False, l_loc=None, m_idx=0,
                 nll = nll + nll_b
                 dJ += _mm_acc(r.reshape(-1, lq_loc).to(dtype).T, oh, F32)
                 dh += torch.sum(r, dim=0)
-        dJ = dJ * _site_mask(L, q, F32, J.device, l_loc, m_idx)
+        # masked in place, with the mask above where it is float32: no
+        # second (l_loc q, Lq) mask or product beside dJ
+        del J_eff
+        if dtype != F32:
+            mask = _site_mask(L, q, F32, J.device, l_loc, m_idx)
+        dJ.mul_(mask)
         return parallel.all_reduce_many([nll, dJ, dh], mesh)
 
     return local_vg
@@ -231,29 +236,29 @@ def _make_local_vg_site(L, q, cfg, l_loc=None, m_idx=0, mesh=None):
         f = (nll + cfg.lambda_J * torch.sum(J.reshape(h.shape[0], -1) ** 2,
                                             dim=1)
              + cfg.lambda_h * torch.sum(h ** 2, dim=1))
-        dJ = dJ + 2.0 * cfg.lambda_J * J
+        dJ.add_(torch.mul(J, 2.0 * cfg.lambda_J))   # dJ is local_vg's own
         dh = dh + 2.0 * cfg.lambda_h * h
         if cfg.lambda_group > 0:
             g_value, g_grad = _group_terms(J, q, cfg)
             f = f + g_value
-            dJ = dJ + g_grad
+            dJ.add_(g_grad)
         return f, dJ, dh
 
     return vg_site
 
 
-def init_lbfgs_site_state(L, d_site, m, device=None):
-    """Zero-initialized per-site LBFGS state (value and grad are filled by
-    the first evaluation)."""
+def init_lbfgs_site_state(l_loc, d_site, m, device=None):
+    """Zero-initialized per-site LBFGS state of `l_loc` sites (value and
+    grad are filled by the first evaluation)."""
     return {
-        "s_hist": torch.zeros((m, L, d_site), dtype=F32, device=device),
-        "y_hist": torch.zeros((m, L, d_site), dtype=F32, device=device),
-        "rho": torch.zeros((m, L), dtype=F32, device=device),
-        "gamma": torch.ones((L,), dtype=F32, device=device),
-        "value": torch.zeros((L,), dtype=F32, device=device),
-        "grad": torch.zeros((L, d_site), dtype=F32, device=device),
-        "converged": torch.zeros((L,), dtype=torch.bool, device=device),
-        "ls_failed": torch.zeros((L,), dtype=torch.bool, device=device),
+        "s_hist": torch.zeros((m, l_loc, d_site), dtype=F32, device=device),
+        "y_hist": torch.zeros((m, l_loc, d_site), dtype=F32, device=device),
+        "rho": torch.zeros((m, l_loc), dtype=F32, device=device),
+        "gamma": torch.ones((l_loc,), dtype=F32, device=device),
+        "value": torch.zeros((l_loc,), dtype=F32, device=device),
+        "grad": torch.zeros((l_loc, d_site), dtype=F32, device=device),
+        "converged": torch.zeros((l_loc,), dtype=torch.bool, device=device),
+        "ls_failed": torch.zeros((l_loc,), dtype=torch.bool, device=device),
         "count": 0,
         "nevals": 0,
     }
@@ -278,7 +283,8 @@ def _make_lbfgs_site_chunk(L, q, cfg, l_loc=None, m_idx=0, mesh=None):
     state, metrics (steps, 7)) with rows [value, ||g||, ||x||,
     n_unfrozen_sites, n_failed_sites, ||h||, ||J||] over all sites;
     init_vg(J, h, codes, w) -> (f, g), the carried evaluation of a fresh
-    state.
+    state. chunk updates the state's history in place: the state it is
+    given is consumed.
     """
     l_loc = L if l_loc is None else l_loc
     m = cfg.memory_size
@@ -293,8 +299,10 @@ def _make_lbfgs_site_chunk(L, q, cfg, l_loc=None, m_idx=0, mesh=None):
                           h.to(F32).reshape(l_loc, q)], dim=1)
 
     def from_x(x):
+        # copies (J's rows are strided in x, h is copied): a view would
+        # keep all of x alive after the step that replaces it
         return (x[:, :d_j].reshape(l_loc * q, lq),
-                x[:, d_j:].reshape(l_loc, q))
+                x[:, d_j:].contiguous())
 
     def vg_x(x, codes, w):
         J, h = from_x(x)
@@ -320,7 +328,7 @@ def _make_lbfgs_site_chunk(L, q, cfg, l_loc=None, m_idx=0, mesh=None):
         for i in range(m):
             b = st["rho"][i] * rowdot(st["y_hist"][i], qv)
             qv = qv + (alphas[i] - b)[:, None] * st["s_hist"][i]
-        d = -qv
+        d = qv.neg_()   # qv is the loops' own tensor: one copy, not two
 
         dphi0 = rowdot(g, d)
         bad = dphi0 >= 0
@@ -355,6 +363,7 @@ def _make_lbfgs_site_chunk(L, q, cfg, l_loc=None, m_idx=0, mesh=None):
             t = torch.where(upd, t_eval, t)
             f_t = torch.where(upd, f_e, f_t)
             g_t = torch.where(upd[:, None], g_e, g_t)
+            del g_e   # not held through the next pass's evaluation
             ok = ok | (upd & ok_e)
             done = done | (upd & (ok_e | fail_e))
             t_prop = torch.where(
@@ -375,16 +384,19 @@ def _make_lbfgs_site_chunk(L, q, cfg, l_loc=None, m_idx=0, mesh=None):
         y = g_t - g
         sy = rowdot(s, y)
         accept = ok & (sy > _MIN_CURVATURE)
-        s_roll = torch.cat([st["s_hist"][1:], s[None]], dim=0)
-        y_roll = torch.cat([st["y_hist"][1:], y[None]], dim=0)
+        # an accepting site's history moves up one slot, in place and one
+        # slot at a time, so one copy of it is live (the JAX package's
+        # masked roll, which XLA runs in place)
+        for hist, newest in ((st["s_hist"], s), (st["y_hist"], y)):
+            for i in range(m):
+                src = hist[i + 1] if i + 1 < m else newest
+                hist[i].copy_(torch.where(accept[:, None], src, hist[i]))
         rho_new = torch.where(
             accept, 1.0 / torch.clamp(sy, min=_MIN_CURVATURE),
             torch.zeros_like(sy))
         st_new = {
-            "s_hist": torch.where(accept[None, :, None], s_roll,
-                                  st["s_hist"]),
-            "y_hist": torch.where(accept[None, :, None], y_roll,
-                                  st["y_hist"]),
+            "s_hist": st["s_hist"],
+            "y_hist": st["y_hist"],
             "rho": torch.where(
                 accept[None, :],
                 torch.cat([st["rho"][1:], rho_new[None]], dim=0),
@@ -593,8 +605,7 @@ def fit_plm_asym(codes, weights, num_symbols,
     last_metrics = None
     with matmul_precision(cfg.precision):
         if needs_init_eval:
-            f0, g0 = init_vg(J, h, codes_d, w_d)
-            state = dict(state, value=f0, grad=g0)
+            state["value"], state["grad"] = init_vg(J, h, codes_d, w_d)
         # a resumed per-site LBFGS state with every site frozen must not
         # run a chunk of pass-throughs (duplicate rows, a drifting
         # iteration count)

@@ -211,9 +211,14 @@ def all_reduce(tensor, mesh, axis=DATA_AXIS):
     """Sum `tensor` in place over the ranks of the mesh axis (axis None:
     the whole mesh); returns it. Nothing moves without a mesh or a process
     group."""
+    return _all_reduce(tensor, mesh, axis, None)
+
+
+def _all_reduce(tensor, mesh, axis, operand_shapes):
     group = None if mesh is None else _group(mesh, axis)
     if group is not None:
-        comm_accounting.record("all-reduce", axis or "mesh", tensor)
+        comm_accounting.record("all-reduce", axis or "mesh", tensor,
+                               operand_shapes)
         dist.all_reduce(tensor, group=group)
     return tensor
 
@@ -225,7 +230,8 @@ def all_reduce_many(tensors, mesh, axis=DATA_AXIS):
     are."""
     if mesh is None:
         return list(tensors)
-    buf = all_reduce(torch.cat([t.reshape(-1) for t in tensors]), mesh, axis)
+    buf = _all_reduce(torch.cat([t.reshape(-1) for t in tensors]), mesh,
+                      axis, [t.shape for t in tensors])
     out, at = [], 0
     for t in tensors:
         out.append(buf[at:at + t.numel()].view(t.shape))

@@ -5,11 +5,12 @@ evcouplings_tpu/parallel/comm_accounting.py).
 The JAX package reads the collectives of a step out of its compiled HLO.
 The port has no compiled program to read: every collective it issues goes
 through the functions of evcouplings_torch.parallel, which record each one
-here as a CollectiveOp (operation, mesh axis, dtype, shape, elements,
-bytes), and collective_profile(fn, *args) returns what one call of fn
-recorded. For the PLM gradient step the profile must be exactly ONE
-all-reduce of the scalar NLL and the (Lq, Lq_aug) gradient block, nothing
-that grows with the number of sequences N.
+here as a CollectiveOp (operation, the operands' (dtype, shape) pairs in
+the JAX package's HLO spelling, elements, bytes, and the mesh axis),
+and collective_profile(fn, *args) returns what one call of fn recorded.
+For the PLM gradient step the profile must be exactly ONE all-reduce of the
+scalar NLL and the (Lq, Lq_aug) gradient block, nothing that grows with
+the number of sequences N.
 
 The analytic model (ring all-reduce cost, weak-scaling efficiency, the
 affine fit of measured all-reduce times) is plain numpy, the JAX
@@ -27,35 +28,57 @@ import torch
 _active = []
 
 
+# torch dtypes in the JAX package's HLO spelling
+_HLO_DTYPES = {
+    torch.bool: "pred", torch.uint8: "u8", torch.int8: "s8",
+    torch.int16: "s16", torch.int32: "s32", torch.int64: "s64",
+    torch.float16: "f16", torch.bfloat16: "bf16", torch.float32: "f32",
+    torch.float64: "f64",
+}
+
+
 @dataclass
 class CollectiveOp:
     """One collective the port issued."""
     op: str                 # "all-reduce" | "broadcast"
+    shapes: tuple           # ((dtype, (dims...)), ...), one per operand
+    elements: int           # total elements moved
+    bytes: int              # total payload bytes
     axis: str               # mesh axis, "mesh" (all its ranks) or "world"
-    dtype: str
-    shape: tuple
-    elements: int
-    bytes: int
 
     @property
     def is_reduction(self):
         return self.op == "all-reduce"
 
 
-def record(op, axis, tensor):
+def record(op, axis, tensor, operand_shapes=None):
     """Note a collective of `tensor` (called by evcouplings_torch.parallel
-    where it issues one)."""
+    where it issues one). `operand_shapes`: the shapes of the operands
+    packed into `tensor`, in order (default: `tensor` is the one operand);
+    each travels in `tensor`'s dtype."""
     if _active:
+        if operand_shapes is None:
+            operand_shapes = (tuple(tensor.shape),)
+        dtype = _HLO_DTYPES[tensor.dtype]
         _active[-1].append(CollectiveOp(
-            op, axis, str(tensor.dtype).replace("torch.", ""),
-            tuple(tensor.shape), int(tensor.numel()),
-            int(tensor.numel() * tensor.element_size())))
+            op, tuple((dtype, tuple(s)) for s in operand_shapes),
+            int(tensor.numel()),
+            int(tensor.numel() * tensor.element_size()), axis))
 
 
-def collective_profile(fn, *args, **kwargs):
+def collective_profile(fn, *args, static_argnums=None, **kwargs):
     """Call fn(*args, **kwargs) and account the collectives it issued.
     Returns (ops, summary) where summary aggregates per-op counts,
-    elements and bytes."""
+    elements and bytes.
+
+    static_argnums (the JAX package's): positions of arguments that are
+    compile-time constants there. The port runs fn eagerly, so every
+    argument reaches fn as the value it is, as a static one does; the
+    positions must name arguments that were given."""
+    for i in static_argnums or ():
+        if not -len(args) <= i < len(args):
+            raise ValueError("static_argnums {} out of range for {} "
+                             "positional arguments".format(i, len(args)))
     ops = []
     _active.append(ops)
     try:

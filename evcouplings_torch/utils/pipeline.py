@@ -184,9 +184,22 @@ def _reuse_stage(stage, outcfg_file):
     return outcfg
 
 
+def _select_agg_backend():
+    """Every plot a stage draws goes through matplotlib's non-interactive
+    Agg backend, whatever the environment selects. The JAX package sets
+    it when its pipeline module loads; the port imports matplotlib only
+    once a job runs, and runs without it where it is absent."""
+    try:
+        import matplotlib
+    except ImportError:
+        return
+    matplotlib.use("Agg")
+
+
 def execute(**config):
     """Execute a pipeline configuration; returns the final global
     output state."""
+    _select_agg_backend()
     check_required(config, ["pipeline", "stages", "global"])
 
     pipeline = _resolve_pipeline(config)

@@ -231,7 +231,7 @@ def _parallel_suite(out_dir):
                 w_loc.float())
             out["profile", N, n] = {
                 "summary": summary, "loss": loss_summary,
-                "ops": [(o.op, o.axis, o.dtype, o.bytes) for o in ops],
+                "ops": [(o.op, o.axis, o.shapes, o.bytes) for o in ops],
                 "value": float(vg(params, rows, w_loc.float())[0])}
     # rank r of a (data, model) mesh sits at (r // n_model, r % n_model)
     out["coords"] = {s: parallel.make_mesh_2d(*s, device="cpu").coords

@@ -230,9 +230,10 @@ class _Routed(Exception):
 
 def _route(monkeypatch, budget, **kw):
     """The fit each package's run_plm picks on golden.a2m under a
-    simulated device budget (EVCOUPLINGS_HBM_BYTES): ("symmetric" or
-    "asymmetric", solver, block size, group_mode), or the exception type
-    the preflight raised."""
+    simulated device budget (EVCOUPLINGS_HBM_BYTES; a (port, JAX) pair
+    gives each package its own): ("symmetric" or "asymmetric", solver,
+    block size, group_mode), or the exception type the preflight
+    raised."""
     import evcouplings_tpu.couplings.fitter as jax_fitter
     import evcouplings_tpu.ops.plm_sites as jax_sites
     import evcouplings_torch.couplings.fitter as fitter
@@ -243,14 +244,16 @@ def _route(monkeypatch, budget, **kw):
                            cfg.group_mode))
         return fit
 
-    monkeypatch.setenv("EVCOUPLINGS_HBM_BYTES", str(budget))
+    budgets = budget if isinstance(budget, tuple) else (budget, budget)
     monkeypatch.setattr(jax_fitter, "fit_plm", stand_in("symmetric"))
     monkeypatch.setattr(jax_sites, "fit_plm_asym", stand_in("asymmetric"))
     monkeypatch.setattr(fitter, "fit_plm", stand_in("symmetric"))
     monkeypatch.setattr(fitter, "fit_plm_asym", stand_in("asymmetric"))
     a2m = os.path.join(GOLDEN, "golden.a2m")
     out = []
-    for fn, extra in ((run_plm, {"device": "cpu"}), (jax_run_plm, {})):
+    for fn, extra, b in ((run_plm, {"device": "cpu"}, budgets[0]),
+                         (jax_run_plm, {}, budgets[1])):
+        monkeypatch.setenv("EVCOUPLINGS_HBM_BYTES", str(b))
         try:
             fn(a2m, os.devnull, focus_seq="TARGET_SEQ/11-28", **kw, **extra)
         except _Routed as r:
@@ -258,6 +261,11 @@ def _route(monkeypatch, budget, **kw):
         except (MemoryError, ValueError) as e:
             out.append(type(e).__name__)
     return out
+
+
+# (port, JAX) budgets for golden.a2m (N=150, L=18, block 64) in which
+# each package routes "auto" LBFGS to per-site LBFGS
+PER_SITE_BUDGETS = (2.0e7, 1.3e7)
 
 
 @pytest.mark.parametrize("budget,kw,want", [
@@ -268,8 +276,13 @@ def _route(monkeypatch, budget, **kw):
     (10 ** 12, {"compute_dtype": "bfloat16"},
      ("symmetric", "lbfgs", 512, "prox")),
     (1e7, {}, ("asymmetric", "adam", 1024, "smoothed")),
-    (1.3e7, {"solver": "lbfgs", "block_size": 64},
-     ("asymmetric", "lbfgs", 64, "smoothed")),
+    # "auto" past the symmetric LBFGS fit to per-site LBFGS: a budget in
+    # each package's own window (the per-site estimate fits it, the
+    # symmetric one misses 0.9 x it); the port counts its own working set
+    # (ROADMAP C13), so no one budget lies in both windows
+    pytest.param(PER_SITE_BUDGETS, {"solver": "lbfgs", "block_size": 64},
+                 ("asymmetric", "lbfgs", 64, "smoothed"),
+                 id="13000000.0-kw5-want5"),
     (1e7, {"parametrization": "symmetric"}, "MemoryError"),
     # FISTA's smaller estimate still fits where LBFGS's does not
     (1e7, {"lambda_g": 0.5}, ("symmetric", "fista", 512, "prox")),

@@ -279,3 +279,14 @@ def test_gibbs_sampler_on_the_card(cuda):
         got, _ = gibbs_sample(J, h, 256, 4, init_codes=init, beta=1e6,
                               seed=5, device=device)
         np.testing.assert_array_equal(got, want)
+
+
+def test_device_codes_default_to_the_card(cuda):
+    """device_codes(x, dtype) takes the twin's positional dtype and puts
+    the codes on the card when no device is named."""
+    from evcouplings_torch.ops.encode import device_codes
+
+    m = np.arange(12).reshape(4, 3)
+    got = device_codes(m, torch.int8)
+    assert got.dtype == torch.int8 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), torch.as_tensor(m, dtype=torch.int8))

@@ -60,7 +60,7 @@ def test_flatten_unflatten_and_pad_match_jax():
         w, nw = je.pad_rows(a, mult)
         np.testing.assert_array_equal(g, w)
         assert n == nw
-    d = te.device_codes(a, "cpu")
+    d = te.device_codes(a, device="cpu")
     assert d.dtype == torch.int8 and d.is_contiguous()
 
 

@@ -152,8 +152,11 @@ def test_one_all_reduce_per_evaluation(run, N, n):
         assert got["summary"]["count"] == 1
         assert got["summary"]["all_reduce_count"] == 1
         assert got["summary"]["bytes"] == payload["bytes"]
-        assert got["ops"] == [("all-reduce", "data", "float32",
-                               payload["bytes"])]
+        # the twin's operand pairs: the (Lq, Lq_aug) gradient block and
+        # the scalar NLL, both f32
+        assert got["ops"] == [("all-reduce", "data",
+                               (("f32", (L * q, payload["lq_aug"])),
+                                ("f32", ())), payload["bytes"])]
         assert got["loss"]["all_reduce_count"] == 1
         assert got["loss"]["bytes"] == 4
         assert got["value"] == pytest.approx(want, rel=1e-6)
@@ -243,3 +246,21 @@ def test_one_process_mesh_moves_nothing():
         parallel.make_mesh(2, device="cpu")
     with pytest.raises(ValueError, match="backend"):
         parallel.distributed_initialize("tcp://localhost:1", 2, 0)
+
+
+def test_collective_profile_takes_static_argnums():
+    """collective_profile accepts the twin's static_argnums: the port calls
+    fn eagerly, so a static argument reaches fn as the value it is; a
+    position that names no argument is refused. Without a mesh nothing is
+    recorded."""
+    seen = []
+
+    def fn(x, n):
+        seen.append(n)
+        return x * n
+
+    ops, summary = ca.collective_profile(fn, torch.ones(3), 4,
+                                         static_argnums=(1,))
+    assert seen == [4] and ops == [] and summary["count"] == 0
+    with pytest.raises(ValueError):
+        ca.collective_profile(fn, torch.ones(3), 4, static_argnums=(2,))

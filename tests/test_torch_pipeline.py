@@ -565,3 +565,48 @@ def test_sample_config_search_job_from_the_command_line(tmp_path):
     hits = pd.read_csv(state["pdb_structure_hits_file"])
     assert set(hits.pdb_id) == {"1aaa", "2bbb", "3ccc"}
     assert os.path.isfile(state["mutation_matrix_file"])
+
+
+def test_execute_selects_agg_not_at_import(tmp_path):
+    """The twin's pipeline selects matplotlib's Agg backend for every
+    stage. The port does so when execute starts, not when the module
+    loads: importing it leaves matplotlib out of sys.modules. With another
+    backend in MPLBACKEND, a compare job still draws its contact maps
+    through Agg (in a subprocess: this process already imported
+    matplotlib).
+
+    The other backend is a module of the test's own, a plain canvas that
+    draws nothing: an interactive backend needs a display, without which
+    matplotlib itself falls back to Agg."""
+    import subprocess
+    import sys
+
+    from evcouplings_torch.utils.config import write_config_file
+
+    (tmp_path / "screen_backend.py").write_text(
+        "from matplotlib.backend_bases import FigureCanvasBase "
+        "as FigureCanvas  # noqa: F401\n")
+    config = _config(tmp_path, stages=["align", "couplings", "compare"])
+    config["compare"].update(plot_lowest_count=2, plot_highest_count=4,
+                             plot_increase=2)
+    cfg_file = str(tmp_path / "job.yml")
+    write_config_file(cfg_file, config)
+    code = (
+        "import sys\n"
+        "from evcouplings_torch.utils import pipeline\n"
+        "from evcouplings_torch.utils.config import read_config_file\n"
+        "assert 'matplotlib' not in sys.modules\n"
+        "state = pipeline.execute(**read_config_file({!r}))\n"
+        "import matplotlib\n"
+        "print(matplotlib.get_backend())\n"
+        "print('\\n'.join(state['contact_map_files']))\n".format(cfg_file))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, MPLBACKEND="module://screen_backend",
+               PYTHONPATH=os.pathsep.join([repo, str(tmp_path)]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=repo,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    backend, *maps = out.stdout.split()
+    assert backend.lower() == "agg"
+    assert len(maps) == 2
+    assert all(os.path.getsize(f) > 0 for f in maps)

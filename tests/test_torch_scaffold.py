@@ -225,6 +225,21 @@ def test_entry_points_refuse_silent_cpu(monkeypatch, tmp_path):
         fit_plm(np.zeros((4, 3), np.int8), np.ones(4), 2, PlmConfig())
 
 
+def test_device_codes_take_the_twins_dtype(monkeypatch):
+    """device_codes(x, dtype) reads its second argument as the twin does,
+    a dtype; the device is a trailing keyword that resolves like every
+    entry point's (the card, or a refusal without one)."""
+    from evcouplings_torch.ops.encode import device_codes
+
+    m = np.arange(12).reshape(4, 3)
+    got = device_codes(m, torch.int16, device="cpu")
+    assert got.dtype == torch.int16 and got.device.type == "cpu"
+    assert torch.equal(got, torch.as_tensor(m, dtype=torch.int16))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_codes(m, torch.int8)
+
+
 def test_cpu_tensors_do_not_count_launches():
     from evcouplings_torch.kernels import adam_update, reweight, seqdot
     from evcouplings_torch.ops.plm_update import (
@@ -319,3 +334,211 @@ def test_compare_entry_points_refuse_silent_cpu(monkeypatch, tmp_path):
                      compare_multimer=False, distance_cutoff=5,
                      target_sequence_file=None, scale_sizes=True)
     assert not os.listdir(tmp_path)
+
+
+# modules of the twin with no module of that name in the port, each with
+# the reason
+NO_PORT_MODULE = {
+    # XLA's persistent compile cache: the port builds its kernels once per
+    # checkout (kernels/_build.py) and Triton keeps its own cache
+    "._jax_cache",
+    # smooths over JAX versions; the port has no JAX
+    ".ops._jax_compat",
+    # K1's Pallas kernel: the port's K1 is kernels/reweight.py over
+    # csrc/reweight.cu, reached through ops/weights as in the twin
+    ".ops.weights_pallas",
+    # the twin's compiled CPython extensions (built from native/*.c); the
+    # port reaches the same readers, csrc/fasta_io.c and stockholm_io.c,
+    # through ctypes from native/__init__.py
+    ".native._fasta",
+    ".native._stockholm",
+}
+# modules the port has beside its twin's: device resolution and matmul
+# precision, and the carriers of JAX-package arrays into port tensors
+PORT_ONLY_MODULES = {"._device", ".convert"}
+
+
+def _module_tree(package):
+    import importlib
+    import pkgutil
+
+    path = importlib.import_module(package).__path__
+    return {m.name[len(package):] for m in pkgutil.walk_packages(
+        path, package + ".", onerror=lambda name: None)}
+
+
+def test_module_tree_matches_the_jax_twin():
+    """Every module of the twin has its port counterpart, apart from those
+    named in NO_PORT_MODULE; the port adds only PORT_ONLY_MODULES. The
+    twin's compiled extensions are found only where they are built, so
+    its side is held as a subset there; no listed module exists in the
+    port."""
+    port = _module_tree("evcouplings_torch")
+    twin = _module_tree("evcouplings_tpu")
+    assert twin - port <= NO_PORT_MODULE
+    assert not NO_PORT_MODULE & port
+    assert {m for m in NO_PORT_MODULE if not m.startswith(".native")} \
+        <= twin
+    assert port - twin == PORT_ONLY_MODULES
+
+
+def _run_py(code, **env):
+    env = dict(os.environ, PYTHONPATH=REPO, **env)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout + out.stderr
+    return out.stdout
+
+
+@pytest.mark.parametrize("package", ["evcouplings_torch", "evcouplings_tpu"])
+def test_star_import_binds_the_subpackages(package):
+    """`from <package> import *` binds the twin's subpackages in both
+    packages (the port adds resolve_device, a function), and both carry
+    the twin's __version__. A plain import of the port loads none of its
+    subpackages (its _device aside) and no JAX."""
+    import json
+
+    import evcouplings_tpu
+
+    code = (
+        "import json, sys, types\n"
+        "import {0}\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('{0}', 'jax')\n"
+        "                and m not in ('{0}', '{0}._device'))\n"
+        "from {0} import *\n"
+        "bound = sorted(k for k, v in dict(globals()).items()\n"
+        "               if isinstance(v, types.ModuleType)\n"
+        "               and v.__name__.startswith('{0}.'))\n"
+        "print(json.dumps([loaded, bound, {0}.__version__]))\n"
+        .format(package))
+    loaded, bound, version = json.loads(_run_py(code))
+    if package == "evcouplings_torch":
+        assert loaded == []
+    assert bound == sorted(evcouplings_tpu.__all__)
+    assert version == evcouplings_tpu.__version__
+
+
+def test_version_through_the_alias():
+    import evcouplings_tpu
+
+    out = _run_py("import evcouplings_torch.compat\n"
+                  "import evcouplings\n"
+                  "print(evcouplings.__version__)\n")
+    assert out.strip() == evcouplings_tpu.__version__
+
+
+# parameters of a twin's function that the port leaves out, each with the
+# reason. The Pallas tile sizes and interpret mode of the fused Adam
+# epilogue mean nothing for the port's kernel (Triton picks its tiles, a
+# CPU tensor runs the plain version): accepting them only to ignore them
+# would be a silent knob. collective_profile's static_argnums is kept, not
+# dropped: it does not tune anything, it says which arguments reach fn as
+# plain values, and in the port's eager call every argument does, so its
+# meaning holds for every value it takes (out-of-range positions are
+# refused as in the twin)
+DROPPED_PARAMETERS = {
+    "evcouplings_torch.ops.plm_update.fused_adam_update":
+        ("bi", "bj", "interpret"),
+    "evcouplings_torch.ops.plm_update.fused_adam_update_presym":
+        ("bi", "bj", "interpret"),
+}
+# fields a record class of the port has after its twin's, each with the
+# reason: the mesh axis a collective ran over (the port records each
+# collective where it issues it; the twin parses it out of HLO, which
+# names no axis)
+PORT_ADDED_FIELDS = {
+    "evcouplings_torch.parallel.comm_accounting.CollectiveOp": ("axis",),
+}
+
+
+def _signature(obj):
+    import inspect
+
+    try:
+        return inspect.signature(obj)
+    except (TypeError, ValueError):   # a builtin or an extension type
+        return None
+
+
+def _default(value):
+    """A default in one spelling for both packages: JAX, numpy and torch
+    dtypes by name, dataclass instances by their fields."""
+    import dataclasses
+
+    if isinstance(value, torch.dtype):
+        return "dtype " + str(value).replace("torch.", "")
+    if isinstance(value, type) and hasattr(value, "dtype"):
+        return "dtype " + np.dtype(value).name
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return (type(value).__name__, dataclasses.asdict(value))
+    return value
+
+
+def _fields(cls):
+    import dataclasses
+
+    if dataclasses.is_dataclass(cls):
+        return tuple(f.name for f in dataclasses.fields(cls))
+    return getattr(cls, "_fields", None)       # a NamedTuple's
+
+
+def _compare_signatures(name, twin, port):
+    """The twin's parameter names, in order (those of DROPPED_PARAMETERS
+    left out), are a prefix of the port's, *args and **kwargs apart, and
+    their defaults are equal."""
+    import inspect
+
+    st, sp = _signature(twin), _signature(port)
+    assert (st is None) == (sp is None), name
+    if st is None:
+        return
+    var = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+    dropped = DROPPED_PARAMETERS.get(name, ())
+    pt = [p for p in st.parameters.values()
+          if p.kind not in var and p.name not in dropped]
+    pp = [p for p in sp.parameters.values() if p.kind not in var]
+    assert [p.name for p in pp[:len(pt)]] == [p.name for p in pt], name
+    assert not set(dropped) & set(sp.parameters), name
+    for a, b in zip(pt, pp):
+        assert _default(a.default) == _default(b.default), (name, a.name)
+
+
+@pytest.mark.parametrize("name", [
+    m for m in PORT_MODULES if not m.startswith(("evcouplings_torch.kernels",
+                                                 "evcouplings_torch.convert",
+                                                 "evcouplings_torch.compat"))])
+def test_signatures_match_the_jax_twin(name):
+    """Every public function, class and method the module shares with its
+    JAX twin takes the twin's parameters, in order and with the same
+    defaults (JAX dtypes read as torch's); the port may add its own only
+    after them (device=, mesh=, ...). Record classes (dataclasses,
+    NamedTuples) have the twin's fields, then PORT_ADDED_FIELDS. Each
+    class has every public method and property of its twin's."""
+    import importlib
+    import inspect
+
+    port = importlib.import_module(name)
+    twin = importlib.import_module(
+        name.replace("evcouplings_torch", "evcouplings_tpu"))
+    for attr in sorted(_public_names(port) & _public_names(twin)):
+        t, p = getattr(twin, attr), getattr(port, attr)
+        qual = name + "." + attr
+        if not callable(t):
+            continue
+        _compare_signatures(qual, t, p)
+        if not inspect.isclass(t):
+            continue
+        fields = _fields(t)
+        if fields is not None or _fields(p) is not None:
+            assert _fields(p) == tuple(fields or ()) + \
+                PORT_ADDED_FIELDS.get(qual, ()), qual
+        for key, member in vars(t).items():
+            if key.startswith("_"):
+                continue
+            other = inspect.getattr_static(p, key, None)
+            assert other is not None, (qual, key)
+            if isinstance(member, (staticmethod, classmethod)):
+                member, other = member.__func__, other.__func__
+            if inspect.isfunction(member):
+                _compare_signatures(qual + "." + key, member, other)
