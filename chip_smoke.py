@@ -48,18 +48,33 @@ evcouplings_torch.utils.app <config> --yolo`) on a batch sweep of phase
 6b's two jobs: the local submitter runs each sub-job in its own process
 on the card, then the summarizer; the sqlite tracker, the job database,
 the summary table, each sub-job's artifacts against 6b's in-process job
-and the kernel events in the sub-jobs' traces are checked. Every
-phase raises on a mismatch; nothing is caught, except that a machine
-without matplotlib cannot draw the mutate stage's plots (nor the
-complex concatenation's distance plot, nor the sweep's summary figure:
-its summarizer then runs as `chip_smoke.py --phase13-summary ...`),
-which the script then names before its last lines (the compare stage is
-then configured to draw no figure). The last lines are a JSON object
+and the kernel events in the sub-jobs' traces are checked. Phase 14
+runs the port's examples as a user does: every script of
+examples_torch/, every notebook of notebooks_torch/ and both example job
+configs, in one child process on the card (`chip_smoke.py
+--phase14-worker ...`) and in one on the host at the same time, holds
+the two against each other (tests/examples_fixtures.py), then runs
+monomer_pipeline.yml once more on the card at full width. Every phase
+raises on a mismatch; nothing is caught, except that a machine without
+matplotlib cannot draw the mutate stage's plots (nor the complex
+concatenation's distance plot, nor the sweep's summary figure: its
+summarizer then runs as `chip_smoke.py --phase13-summary ...`, nor the
+examples' figures: phase 14 then gives them a stand-in that records
+each figure), which the script then names before its last lines (the
+compare stage is then configured to draw no figure). The last lines are a JSON object
 describing each kernel, the card's name and power limit as nvidia-smi
 reports them, and {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when no CUDA device is available or the
 port's package is not beside this script. Imports nothing of JAX.
+
+    python3 chip_smoke.py --di-twin-calls N [torch]
+
+runs the direct information of tests/test_torch_gpu.py's float64 DI test
+in N fresh processes, on the card and on the host, every call twice in a
+row, names the side whose two results differed, and times the card's DI
+at L=500 (ROADMAP C14); `torch` puts torch's CPU exp and log back on the
+host, as before the repair.
 """
 
 import json
@@ -1963,16 +1978,17 @@ def phase10b(tmp, small, align_kw, not_produced):
 
 
 def phase10c(tmp, full, align_kw, couplings_kw, not_produced,
-             num_models=3):
+             num_models=2):
     """The full-width five-stage job: the phase-6b planted synthetic
     (N=16384 + focus, L=160) through align, couplings (parity), compare
     against phase 8c's ten seeded structures, mutate and fold with the
     sample config's fold settings (config/sample_config_monomer.txt:
     probability cutoffs [0.90, 0.99], the count ramp 0.5-1.3 by 0.05 over
-    19 sub-runs, cleanup), cpu 4. Depth is cut: 3 models per sub-run
+    19 sub-runs, cleanup), cpu 4. Depth is cut: 2 models per sub-run
     instead of the config's 10, with which the phase took 77 s on an
     NVIDIA H100 80GB HBM3 at 700 W (each fake CNS call is a process
-    start). Returns the job's launches."""
+    start; 3 models took 46.8-57.9 s, and the script past 700 s once
+    phase 14 ran the examples). Returns the job's launches."""
     import pandas as pd
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
@@ -3124,6 +3140,440 @@ def phase13(tmp, full, align_kw, deltas, refs, not_produced):
     return {k: sum(e[k] for e in events.values()) for k in KERNEL_SYMBOLS}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the port's examples (examples_torch/), notebooks
+# (notebooks_torch/) and example job configs as a user runs them: every
+# item in one child process on the card and again in one on the host, held
+# against each other (tests/examples_fixtures.py); then the monomer config
+# once more on the card at full width
+# ---------------------------------------------------------------------------
+
+# the fits' tolerances card against host (tests/examples_fixtures.py and
+# tests/test_torch_example_configs.py): the parity LBFGS, FISTA and Adam
+# fits at the scripts' depth within DEEP_REL, the configs' production Adam
+# and balanced LBFGS fits within these relative Frobenius distances
+PHASE14_PRODUCTION_REL = 2e-3
+PHASE14_BALANCED_REL = 5e-2
+# bound on each phase-14 child (every example, notebook and config, and
+# the sharded script's 8 rank processes)
+PHASE14_RUN_S = 600
+
+
+def plot_stand_in(not_drawn):
+    """sys.modules entries standing in for matplotlib on a machine without
+    it: every call returns a stand-in, and every figure the examples save
+    is named in `not_drawn` instead of drawn. The port's contact-map plot
+    (matplotlib geometry throughout) is replaced by a recorder too."""
+    from unittest import mock
+
+    from evcouplings_torch.visualize import pairs
+
+    def plot_contact_map(*args, **kwargs):
+        not_drawn.append("plot_contact_map")
+
+    pairs.plot_contact_map = plot_contact_map
+
+    mpl = mock.MagicMock(name="matplotlib")
+    plt = mpl.pyplot
+    fig = mock.MagicMock(name="figure")
+    for saver in (plt.savefig, fig.savefig):
+        saver.side_effect = lambda path, *a, **kw: not_drawn.append(
+            str(path))
+    plt.subplots.return_value = (fig, mock.MagicMock(name="axes"))
+    plt.figure.return_value = fig
+    return {"matplotlib": mpl, "matplotlib.pyplot": plt,
+            "matplotlib.patches": mpl.patches}
+
+
+def phase14_worker(tree, record):
+    """`chip_smoke.py --phase14-worker TREE RECORD`: from TREE (a copy of
+    examples_torch/ and notebooks_torch/), every example script as
+    __main__, every notebook's code cells in order in one namespace, then
+    both job configs through utils.pipeline (the `cpu_` copies when
+    EVCOUPLINGS_TORCH_DEVICE is set); each item's stdout, seconds and
+    kernel launches into RECORD (JSON)."""
+    import contextlib
+    import io
+    import runpy
+
+    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from examples_fixtures import CONFIGS, NOTEBOOKS, SCRIPTS
+
+    not_drawn = []
+    if not have_matplotlib():
+        sys.modules.update(plot_stand_in(not_drawn))
+    host = bool(os.environ.get("EVCOUPLINGS_TORCH_DEVICE"))
+    examples = os.path.join(tree, "examples_torch")
+    items = ([("script", s, os.path.join(examples, s)) for s in SCRIPTS]
+             + [("notebook", n, os.path.join(tree, "notebooks_torch", n))
+                for n in NOTEBOOKS]
+             + [("config", c, os.path.join(
+                 "examples_torch", ("cpu_" if host else "") + c))
+                for c in CONFIGS])
+    out = []
+    for kind, name, path in items:
+        stdout = io.StringIO()
+        os.chdir(tree)
+        print("phase 14 item", kind, name, file=sys.stderr, flush=True)
+        t = time.perf_counter()
+
+        def run():
+            with contextlib.redirect_stdout(stdout):
+                if kind == "script":
+                    sys.argv = [path]
+                    runpy.run_path(path, run_name="__main__")
+                elif kind == "notebook":
+                    os.chdir(os.path.dirname(path))
+                    with open(path) as f:
+                        cells = json.load(f)["cells"]
+                    ns = {}
+                    for i, c in enumerate(c for c in cells
+                                          if c["cell_type"] == "code"):
+                        exec(compile("".join(c["source"]),
+                                     "{} cell {}".format(name, i), "exec"),
+                             ns)
+                else:
+                    from evcouplings_torch.utils import pipeline
+                    from evcouplings_torch.utils.config import (
+                        read_config_file,
+                    )
+
+                    pipeline.execute_wrapped(**read_config_file(path))
+
+        if host:
+            run()
+            launches = {}
+        else:
+            _, launches = counted(run)
+        out.append({"kind": kind, "name": name,
+                    "stdout": stdout.getvalue(),
+                    "seconds": time.perf_counter() - t,
+                    "launches": launches})
+    with open(record, "w") as f:
+        json.dump({"items": out, "not_drawn": not_drawn}, f)
+    return 0
+
+
+def phase14_start(tmp, side):
+    """Copy examples_torch/ and notebooks_torch/ into tmp/<side> (host:
+    configs with `device: cpu` beside them) and start the side's child."""
+    import shutil
+
+    import yaml
+
+    tree = os.path.join(tmp, "phase14_" + side)
+    shutil.copytree(os.path.join(HERE, "examples_torch"),
+                    os.path.join(tree, "examples_torch"),
+                    ignore=shutil.ignore_patterns("output", "__pycache__"))
+    shutil.copytree(os.path.join(HERE, "notebooks_torch"),
+                    os.path.join(tree, "notebooks_torch"))
+    env = dict(os.environ)
+    env.pop("EVCOUPLINGS_TORCH_DEVICE", None)
+    env.pop("TUTORIAL_ITERS", None)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    # the card's and the host's child run at once: half the cores each
+    env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 2) // 2))
+    if side == "host":
+        env["EVCOUPLINGS_TORCH_DEVICE"] = "cpu"
+        for name in ("monomer_pipeline.yml", "complex_pipeline.yml"):
+            path = os.path.join(tree, "examples_torch", name)
+            with open(path) as f:
+                config = yaml.safe_load(f)
+            assert "device" not in config["global"], name
+            config["global"]["device"] = "cpu"
+            with open(os.path.join(tree, "examples_torch", "cpu_" + name),
+                      "w") as f:
+                yaml.safe_dump(config, f)
+    record = os.path.join(tmp, "phase14_{}.json".format(side))
+    log_path = os.path.join(tmp, "phase14_{}.log".format(side))
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase14-worker",
+             tree, record], stdout=log_file, stderr=subprocess.STDOUT,
+            env=env)
+    return tree, record, log_path, proc
+
+
+def phase14_wait(started):
+    """Wait for a child of phase14_start; its record, or raise with its
+    output."""
+    tree, record, log_path, proc = started
+    try:
+        rc = proc.wait(timeout=PHASE14_RUN_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed after {} s".format(PHASE14_RUN_S)
+    with open(log_path) as f:
+        text = f.read()
+    assert rc == 0, "phase 14 child {} failed ({}):\n{}".format(
+        tree, rc, text[-6000:])
+    with open(record) as f:
+        return json.load(f)
+
+
+def phase14_compare(trees, records):
+    """Card against host: every item's printed text equal and its decimals
+    within DEEP_REL (the job notebooks' seconds aside), the findings and the
+    fits' artifacts; returns {item: largest relative difference}."""
+    import re
+
+    import pandas as pd
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from examples_fixtures import (
+        DEEP_REL, check_models, check_output, findings, model_distance,
+    )
+    from evcouplings_torch.couplings.model import CouplingsModel
+
+    def stdout(item, side):
+        # the job notebooks print paths under their own mkdtemp
+        # directories, the sharded script the ranks' device; the host's
+        # job configs carry one key more (`device: cpu`), which its final
+        # outcfg keeps
+        text = re.sub(r"(running_jobs|running_complexes|output_files)_\w+",
+                      r"\1_<tmp>", item["stdout"])
+        if side == "host":
+            text = re.sub(r"final.outcfg keys: (\d+)", lambda m:
+                          "final.outcfg keys: {}".format(int(m.group(1)) - 1),
+                          text)
+        return re.sub(r"each on \S+", "each on <device>", text)
+
+    worst = {}
+    for card, host in zip(records["card"]["items"],
+                          records["host"]["items"]):
+        assert card["name"] == host["name"]
+        name = card["name"]
+        got, want = stdout(card, "card"), stdout(host, "host")
+        assert findings(name, got) == findings(name, want), name
+        # running_jobs prints its runtime table: seconds are not findings.
+        # The rest within DEEP_REL (the complex job's balanced fit within
+        # PHASE14_BALANCED_REL: TF32 products on the card), and 1e-3
+        # absolute: the atol of phase 6a's skew-normal probabilities (the
+        # job notebooks print their tails, ~1e-21)
+        rtol = {"running_jobs.ipynb": None,
+                "running_jobs_complexes.ipynb": PHASE14_BALANCED_REL,
+                "complex_pipeline.yml": PHASE14_BALANCED_REL}.get(
+                    name, DEEP_REL)
+        worst[name] = check_output(got, want, trees["card"], trees["host"],
+                                   rtol=rtol, what=name, atol=1e-3)
+    assert findings("library_quickstart.py", next(
+        i["stdout"] for i in records["card"]["items"]
+        if i["name"] == "library_quickstart.py")) == [
+        ("4", "18"), ("7", "25"), ("11", "22"), ("2", "29")]
+
+    def out(side, *parts):
+        return os.path.join(trees[side], "examples_torch", "output", *parts)
+
+    deep = {"monomer": "demo.model", "tutorial_model": "demo.model",
+            "sparse": ("sparse.model", "dense.model"),
+            "complex": "demo.model"}
+    models = {}
+    for sub, names in deep.items():
+        for name in ([names] if isinstance(names, str) else names):
+            got, want = (CouplingsModel(out(s, sub, name))
+                         for s in ("card", "host"))
+            models[sub + "/" + name] = check_models(got, want, deep=True,
+                                                    what=name)
+            if sub == "sparse":
+                zero = [np.sqrt((m.J_ij ** 2).sum(axis=(2, 3))) == 0.0
+                        for m in (got, want)]
+                assert np.array_equal(*zero), name
+    for job, rel in (("pipeline", PHASE14_PRODUCTION_REL),
+                     ("pipeline_complex", PHASE14_BALANCED_REL)):
+        got, want = (CouplingsModel(out(s, job, "demo", "couplings",
+                                        "demo.model"))
+                     for s in ("card", "host"))
+        dist = model_distance(got, want)
+        assert dist["f_i"] <= 1e-6 and dist["f_ij"] <= 1e-6, dist
+        assert dist["J_ij"] <= rel and dist["h_i"] <= rel, (job, dist)
+        models[job] = dist
+        key = ["i", "j"] + (["segment_i", "segment_j"]
+                            if job == "pipeline_complex" else [])
+        for table in (["demo_CouplingScores.csv"]
+                      + (["demo_CouplingScores_inter.csv"]
+                         if job == "pipeline_complex" else [])):
+            got, want = (pd.read_csv(out(s, job, "demo", "couplings", table))
+                         for s in ("card", "host"))
+            assert (got[key].head(8).values
+                    == want[key].head(8).values).all(), table
+            if table.endswith("_inter.csv"):
+                assert (got.i.iloc[0], got.j.iloc[0]) == (8, 4)
+    got, want = (np.load(out(s, "tutorial_distances",
+                             "demo_distance_map.npy"))
+                 for s in ("card", "host"))
+    assert np.abs(got - want).max() <= 1e-9
+    with open(out("card", "complex", "demo.a2m")) as a, open(
+            out("host", "complex", "demo.a2m")) as b:
+        assert a.read() == b.read()
+    return worst, models
+
+
+def phase14_full_width(tmp, full):
+    """monomer_pipeline.yml as a user who copies and edits it runs it: a
+    copy pointed at phase 6b's full-width synthetic (TARGET, L=160, 8
+    planted pairs), on the card; top-8 planted precision 1.0."""
+    import pandas as pd
+
+    from evcouplings_torch.utils.config import read_config_file
+
+    config = read_config_file(os.path.join(HERE, "examples_torch",
+                                           "monomer_pipeline.yml"))
+    config["global"]["prefix"] = os.path.join(tmp, "phase14_full", "demo")
+    config["global"]["sequence_id"] = "TARGET"
+    config["align"]["input_alignment"] = full
+    state, counts, secs = run_job(config)
+    longrange = pd.read_csv(state["ec_longrange_file"])
+    top8 = set(zip(longrange.i.values[:8], longrange.j.values[:8]))
+    want8 = {(i + 1, j + 1) for i, j in PLANTED}
+    assert top8 == want8, sorted(top8)
+    assert counts["K1"] == 2 and counts["K2"] > 0, counts
+    return state, counts, secs
+
+
+def phase14(tmp, full, not_produced):
+    """Phase 14; returns the kernel launches of its card runs by item."""
+    t = time.perf_counter()
+    started = {side: phase14_start(tmp, side) for side in ("card", "host")}
+    records = {side: phase14_wait(s) for side, s in started.items()}
+    secs = time.perf_counter() - t
+    trees = {side: s[0] for side, s in started.items()}
+    worst, models = phase14_compare(trees, records)
+    for side in ("card", "host"):
+        log("phase 14 {} child (both at once, {:.1f} s): seconds by item "
+            "{}".format(side, secs, json.dumps(
+                {i["name"]: round(i["seconds"], 3)
+                 for i in records[side]["items"]})))
+    for path in records["card"]["not_drawn"]:
+        not_produced.add("phase 14 figure (no matplotlib): " + (
+            os.path.relpath(path, trees["card"]) if os.path.isabs(path)
+            else path))
+    launches = {i["name"]: i["launches"] for i in records["card"]["items"]}
+    log("phase 14 card vs host: every printed text equal, findings equal; "
+        "largest relative difference of a printed decimal by item {}; "
+        ".model distances {}; kernel launches on the card by item "
+        "{}".format(json.dumps(worst), json.dumps(models),
+                    json.dumps(launches)))
+    state, counts, full_secs = phase14_full_width(tmp, full)
+    launches["monomer_pipeline.yml full width"] = counts
+    log("phase 14 monomer_pipeline.yml at full width (N={} after the "
+        "coverage filter, L={}): {:.2f} s, stages {}; top-8 planted "
+        "precision 1.0; launches {}".format(
+            state["num_sequences"], state["num_sites"], full_secs,
+            json.dumps(runtime_seconds(state)), json.dumps(counts)))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# `chip_smoke.py --di-twin-calls N` (ROADMAP C14): which side of the card
+# test's direct-information check varies between processes
+# ---------------------------------------------------------------------------
+
+def c14_inputs():
+    """The frequencies of tests/test_torch_gpu.py::
+    test_float64_inversion_and_di_on_the_card (seed 4, L=30, q=6)."""
+    rng = np.random.default_rng(4)
+    L, q, n = 30, 6, 400
+    codes = rng.integers(0, q, size=(n, L))
+    oh = np.eye(q)[codes].reshape(n, L * q)
+    f_i = 0.5 * oh.mean(0).reshape(L, q) + 0.5 / q
+    f_ij = (0.5 * (oh.T @ oh / n).reshape(L, q, L, q).transpose(0, 2, 1, 3)
+            + 0.5 / q ** 2)
+    idx = np.arange(L)
+    f_ij[idx, idx] = 0.5 * np.eye(q)[None] * (oh.mean(0).reshape(L, q)
+                                               [:, :, None]) + (
+        0.5 / q) * np.eye(q)[None]
+    return f_i, f_ij
+
+
+def di_twin_worker(host_exp="numpy"):
+    """One process: the card test's DI on the card, then on the host, each
+    call made twice in a row; prints one JSON line per side: whether the two
+    results are bitwise equal, and the pair indices where they differ.
+    host_exp "torch" puts torch's CPU exp and log back on the host (the
+    port before the C14 repair)."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from evcouplings_torch.ops import mean_field as mf
+
+    if host_exp == "torch":
+        mf._exp, mf._log = torch.exp, torch.log
+
+    f_i, f_ij = c14_inputs()
+    L, q = f_i.shape
+    C = mf.compute_covariance_matrix(f_i, f_ij, device="cpu")
+    J = mf.reshape_invC_to_4d(mf.invert_covariance(C), L, q)
+    ii, jj = np.triu_indices(L, k=1)
+    out = {}
+    for side, Jd in (("card", J.to("cuda")), ("host", J)):
+        device = "cuda" if side == "card" else "cpu"
+        first, second = (mf.direct_information(Jd, f_i, device=device)
+                         .cpu().numpy() for _ in range(2))
+        bad = np.flatnonzero(first[ii, jj] != second[ii, jj])
+        rel = np.abs(first - second) / np.maximum(np.abs(second), 1e-300)
+        out[side] = {"equal": bool(np.array_equal(first, second)),
+                     "pairs": [int(bad.min()), int(bad.max()), len(bad)]
+                     if len(bad) else [], "max_rel": float(rel.max())}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def di_twin_calls(n, host_exp="numpy"):
+    """N processes of di_twin_worker(host_exp), then the card's DI sweeps per
+    second at phase 7d's L=500 synthetic (two calls, each timed with a
+    synchronize)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from evcouplings_torch.couplings.mean_field import (
+        regularize_frequencies, regularize_pair_frequencies,
+    )
+    from evcouplings_torch.ops import frequencies as freq
+    from evcouplings_torch.ops import mean_field as mf
+
+    moved = {"card": 0, "host": 0}
+    for k in range(n):
+        line = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--di-twin-worker",
+             host_exp],
+            capture_output=True, text=True, check=True).stdout.splitlines()[-1]
+        rec = json.loads(line)
+        for side in moved:
+            moved[side] += not rec[side]["equal"]
+        log("di twin process {}: {}".format(k + 1, line))
+    log("di twin calls (host exp and log by {}): {} processes; first call "
+        "unlike the second on the card in {}, on the host in {}".format(
+            host_exp, n, moved["card"], moved["host"]))
+    rng = np.random.default_rng(SEED + 7)
+    codes = torch.as_tensor(synthetic_codes(
+        rng, 4000, 500, 21, families=64, mutate=0.3, gap_rows=0.1,
+        missing_rows=0.0), device="cuda")
+    w = np.ones(len(codes))
+    f_i = freq.frequencies(codes, w, 21)
+    f_ij = freq.pair_frequencies(codes, w, 21, f_i)
+    f_i = regularize_frequencies(f_i)
+    C = mf.compute_covariance_matrix(
+        f_i, regularize_pair_frequencies(f_ij), device="cuda")
+    J = mf.reshape_invC_to_4d(mf.invert_covariance(C), 500, 21)
+    del C, f_ij
+    for _ in range(2):
+        before = mf.direct_information.sweeps
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mf.direct_information(J, f_i, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        sweeps = mf.direct_information.sweeps - before
+        log("di at L=500 on the card: {} sweeps in {:.4f} s, {:.1f} sweeps/s "
+            "(124750 pairs, q=21)".format(sweeps, secs, sweeps / secs))
+    return 0
+
+
 def run_job(config):
     """One pipeline job through execute_wrapped, its kernel launches
     counted from zero, and its final state; every file the final outcfg
@@ -3790,7 +4240,17 @@ def main():
         "{:.1f} s".format(json.dumps(phase13_launches),
                           time.perf_counter() - t13))
 
+    # ---- phase 14: the port's examples, notebooks and example configs on
+    # the card and on the host, held against each other; then the monomer
+    # config on the card at full width
+    t14 = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase14_launches = phase14(tmp, full, not_produced)
+    log("phase 14 took {:.1f} s".format(time.perf_counter() - t14))
+
     for k, row in rows.items():
+        row["examples_launches"] = sum(
+            c.get(k, 0) for c in phase14_launches.values())
         row["distributed_launches"] = {
             sub: counts[k] for sub, counts in phase12_launches.items()}
         row["launches"] = launches[k]
@@ -3815,6 +4275,12 @@ if __name__ == "__main__":
         sys.exit(phase12_worker(*sys.argv[2:]))
     if sys.argv[1:2] == ["--phase13-summary"]:
         sys.exit(phase13_summary_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--di-twin-calls"]:
+        sys.exit(di_twin_calls(int(sys.argv[2]), *sys.argv[3:4]))
+    if sys.argv[1:2] == ["--di-twin-worker"]:
+        sys.exit(di_twin_worker(*sys.argv[2:3]))
+    if sys.argv[1:2] == ["--phase14-worker"]:
+        sys.exit(phase14_worker(*sys.argv[2:]))
     if sys.argv[1:2] == ["--phase5c"]:
         sys.exit(phase5c_worker(*sys.argv[2:]))
     if sys.argv[1:2] == ["--peak-memory"]:

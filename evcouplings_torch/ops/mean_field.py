@@ -11,7 +11,8 @@ path does. Direct information iterates the two-site fixed point of ALL
 L(L-1)/2 pairs at once as batched (P, q, q) x (P, q) products, each pair
 frozen at its own convergence sweep, so every pair's result is the one
 its own loop would give; the host reads whether any pair is still active
-only every _DI_CHECK_EVERY sweeps.
+only every _DI_CHECK_EVERY sweeps. On the host, exp and log go through
+numpy (_exp, _log), not torch's threaded CPU kernels.
 """
 
 import warnings
@@ -35,6 +36,26 @@ def _t(a, device):
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=F64)
     return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
+
+
+def _exp(x):
+    """exp of a float64 tensor on its device. On the host numpy computes
+    it: torch's CPU exp and log split a tensor of more than 2048 elements
+    over their threads and call MKL's vector math there, and a process's
+    first such call gave one thread's block of the result at ~1e-8
+    relative error on the host CPU of an NVIDIA H100 80GB HBM3 system
+    (ROADMAP C14)."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.exp(x.numpy()))
+    return torch.exp(x)
+
+
+def _log(x):
+    """log of a float64 tensor on its device; on the host through numpy,
+    as _exp."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.log(x.numpy()))
+    return torch.log(x)
 
 
 def compute_covariance_matrix(f_i, f_ij, device=None):
@@ -109,7 +130,7 @@ def fields_from_couplings(J_ij, f_i, device=None):
     device = resolve_device(device)
     J_ij, f_i = _t(J_ij, device), _t(f_i, device)
     L = f_i.shape[0]
-    log_fi = torch.log(f_i / f_i[:, -1][:, None])
+    log_fi = _log(f_i / f_i[:, -1][:, None])
     total = torch.einsum("ijab,jb->ia", J_ij, f_i)
     idx = torch.arange(L, device=device)
     diag = torch.einsum("iab,ib->ia", J_ij[idx, idx], f_i)
@@ -172,7 +193,7 @@ def direct_information(J_ij, f_i, epsilon=1e-4, max_sweeps=10000,
     ii_t = torch.as_tensor(ii, device=device)
     jj_t = torch.as_tensor(jj, device=device)
 
-    W = torch.exp(J_ij[ii_t, jj_t])                 # (P, q, q)
+    W = _exp(J_ij[ii_t, jj_t])                      # (P, q, q)
     fi, fj = f_i[ii_t], f_i[jj_t]
     h_i = torch.full_like(fi, 1.0 / q)
     h_j = torch.full_like(fj, 1.0 / q)
@@ -215,7 +236,7 @@ def direct_information(J_ij, f_i, epsilon=1e-4, max_sweeps=10000,
     p = W * h_i[:, :, None] * h_j[:, None, :]
     p = p / p.sum(dim=(1, 2), keepdim=True)
     prod = fi[:, :, None] * fj[:, None, :]
-    di_pairs = torch.sum(p * torch.log((p + _TINY) / (prod + _TINY)),
+    di_pairs = torch.sum(p * _log((p + _TINY) / (prod + _TINY)),
                          dim=(1, 2))
     _warn_nan_di(di_pairs, ii, jj)
     di[ii_t, jj_t] = di_pairs

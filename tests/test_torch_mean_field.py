@@ -144,6 +144,54 @@ def test_direct_information_flags_nan_pairs():
         tops.direct_information(J, f_i, device="cpu")
 
 
+def test_host_exp_and_log_avoid_torchs_threaded_kernels(monkeypatch):
+    """ROADMAP C14: on the host, direct_information and
+    fields_from_couplings take exp and log from numpy; torch's threaded
+    CPU kernels (MKL vector math per thread, for more than 2048 elements)
+    gave one thread's block at ~1e-8 relative error in a process's first
+    call on the host CPU of an NVIDIA H100 80GB HBM3 system."""
+    f_i, f_ij = _freqs(L=40, q=4, seed=6)
+    L, q = f_i.shape
+    C = jops.compute_covariance_matrix(f_i, f_ij)
+    J = jops.reshape_invC_to_4d(-np.linalg.inv(C), L, q)
+    want = (tops.direct_information(J, f_i, device="cpu").numpy(),
+            tops.fields_from_couplings(J, f_i, device="cpu").numpy())
+    assert L * (L - 1) // 2 * q * q > 2048
+
+    def refuse(real):
+        def op(x, *args, **kwargs):
+            assert x.device.type != "cpu", "torch's CPU kernel was called"
+            return real(x, *args, **kwargs)
+        return op
+
+    monkeypatch.setattr(torch, "exp", refuse(torch.exp))
+    monkeypatch.setattr(torch, "log", refuse(torch.log))
+    got = (tops.direct_information(J, f_i, device="cpu").numpy(),
+           tops.fields_from_couplings(J, f_i, device="cpu").numpy())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_allclose(got[0], jops.direct_information(J, f_i),
+                               rtol=1e-10, atol=1e-14)
+
+
+def test_direct_information_is_bitwise_stable():
+    """ROADMAP C14: the same call gives the same bits after allocations of
+    odd sizes and under any intra-op thread count."""
+    f_i, f_ij = _freqs(L=9, seed=5)
+    L, q = f_i.shape
+    C = jops.compute_covariance_matrix(f_i, f_ij)
+    J = jops.reshape_invC_to_4d(-np.linalg.inv(C), L, q)
+    want = tops.direct_information(J, f_i, device="cpu").numpy()
+    keep = []
+    for k, threads in enumerate((1, 2, 3, 4) * 2):
+        torch.set_num_threads(threads)
+        keep.append(torch.empty(1 + 37 * k, dtype=torch.float64))
+        keep.append(torch.empty(3 + k, dtype=torch.int8))
+        got = tops.direct_information(torch.as_tensor(J).clone(),
+                                      f_i.copy(), device="cpu").numpy()
+        np.testing.assert_array_equal(got, want)
+
+
 def test_fit_matches_jax_on_the_golden_alignment(fits):
     """Weights and frequencies equal; J, h and DI within 1e-9."""
     model, want = fits

@@ -199,9 +199,13 @@ _FORBIDDEN = re.compile(
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(os.path.join(REPO, "evcouplings_torch")):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    # chip_smoke.py imports tests/examples_fixtures.py, where JAX is absent
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "examples_fixtures.py")]
+    for top in ("evcouplings_torch", "examples_torch"):
+        for root, _, names in os.walk(os.path.join(REPO, top)):
+            files += [os.path.join(root, n) for n in sorted(names)
+                      if n.endswith(".py")]
     return files
 
 
