@@ -16,6 +16,7 @@ back as float64 numpy arrays, the form the model artifacts store.
 import numpy as np
 import torch
 
+from evcouplings_torch._device import matmul_precision
 from evcouplings_torch.ops.encode import one_hot
 from evcouplings_torch.ops.weights import _as_tensor
 
@@ -33,14 +34,17 @@ def _weighted_sums(matrix_mapped, seq_weights, num_symbols, dtype, device,
     ).to(dtype)
     acc = torch.zeros((lq, lq) if pairs else (lq,), dtype=dtype,
                       device=codes.device)
-    for start in range(0, n, _BLOCK):
-        oh = one_hot(codes[start:start + _BLOCK], num_symbols,
-                     dtype=dtype).reshape(-1, lq)
-        wb = w[start:start + _BLOCK]
-        if pairs:
-            acc += (oh * wb[:, None]).T @ oh
-        else:
-            acc += wb @ oh
+    # IEEE products whatever the caller's TF32 setting (the JAX package
+    # pins these to Precision.HIGHEST)
+    with matmul_precision("highest"):
+        for start in range(0, n, _BLOCK):
+            oh = one_hot(codes[start:start + _BLOCK], num_symbols,
+                         dtype=dtype).reshape(-1, lq)
+            wb = w[start:start + _BLOCK]
+            if pairs:
+                acc += (oh * wb[:, None]).T @ oh
+            else:
+                acc += wb @ oh
     return acc.cpu().double().numpy()
 
 

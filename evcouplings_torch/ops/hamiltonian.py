@@ -14,7 +14,7 @@ J[j,i,b,a] == J[i,j,a,b], as produced by the plmc_v2 codec.
 import numpy as np
 import torch
 
-from evcouplings_torch._device import resolve_device
+from evcouplings_torch._device import matmul_precision, resolve_device
 from evcouplings_torch.ops.encode import flatten_J, one_hot
 
 # component order in all *_full outputs
@@ -179,7 +179,10 @@ def hamiltonians_device(sequences, J_ij, h_i, dtype=torch.float32,
     for start in range(0, codes.shape[0], 4096):
         oh = one_hot(codes[start:start + 4096], q, dtype=dtype).reshape(
             -1, L * q)
-        j_sum = 0.5 * torch.sum(oh * (oh @ J_flat.T), dim=1)
+        # IEEE products whatever the caller's TF32 setting (the JAX
+        # package pins this one to Precision.HIGHEST)
+        with matmul_precision("highest"):
+            j_sum = 0.5 * torch.sum(oh * (oh @ J_flat.T), dim=1)
         h_sum = torch.sum(oh * h_flat[None, :], dim=1)
         out.append(torch.stack([j_sum + h_sum, j_sum, h_sum], dim=1))
     if not out:

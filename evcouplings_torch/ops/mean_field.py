@@ -20,7 +20,7 @@ import warnings
 import numpy as np
 import torch
 
-from evcouplings_torch._device import resolve_device
+from evcouplings_torch._device import matmul_precision, resolve_device
 
 F64 = torch.float64
 
@@ -131,9 +131,11 @@ def fields_from_couplings(J_ij, f_i, device=None):
     J_ij, f_i = _t(J_ij, device), _t(f_i, device)
     L = f_i.shape[0]
     log_fi = _log(f_i / f_i[:, -1][:, None])
-    total = torch.einsum("ijab,jb->ia", J_ij, f_i)
     idx = torch.arange(L, device=device)
-    diag = torch.einsum("iab,ib->ia", J_ij[idx, idx], f_i)
+    # float64 (no TF32 route), pinned as the JAX package pins its products
+    with matmul_precision("highest"):
+        total = torch.einsum("ijab,jb->ia", J_ij, f_i)
+        diag = torch.einsum("iab,ib->ia", J_ij[idx, idx], f_i)
     return log_fi - (total - diag)
 
 
@@ -156,15 +158,17 @@ def tilde_fields(J_ij, f_i, f_j, epsilon=1e-4, device=None):
     diff = float("inf")
     sweeps = 0
     max_sweeps = 10000
-    while diff > epsilon and sweeps < max_sweeps:
-        h_i_new = f_i / (h_j @ W.T)
-        h_i_new = h_i_new / h_i_new.sum()
-        h_j_new = f_j / (h_i @ W)
-        h_j_new = h_j_new / h_j_new.sum()
-        diff = max(float((h_i_new - h_i).abs().max()),
-                   float((h_j_new - h_j).abs().max()))
-        h_i, h_j = h_i_new, h_j_new
-        sweeps += 1
+    # float64 (no TF32 route), pinned as the JAX package pins its products
+    with matmul_precision("highest"):
+        while diff > epsilon and sweeps < max_sweeps:
+            h_i_new = f_i / (h_j @ W.T)
+            h_i_new = h_i_new / h_i_new.sum()
+            h_j_new = f_j / (h_i @ W)
+            h_j_new = h_j_new / h_j_new.sum()
+            diff = max(float((h_i_new - h_i).abs().max()),
+                       float((h_j_new - h_j).abs().max()))
+            h_i, h_j = h_i_new, h_j_new
+            sweeps += 1
     if diff > epsilon:
         warnings.warn(
             "tilde_fields did not reach the epsilon={} fixed-point "

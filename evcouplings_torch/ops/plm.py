@@ -29,13 +29,24 @@ Layout
 
 Precision
 ---------
-dtype "float32" with precision "highest" is the parity mode: IEEE
-float32 products (TF32 off, set for the fit's duration and restored).
-"high"/"default" allow TF32. dtype "bfloat16" is the production mode:
-bf16 operands, with float32 outputs on the gradient products
-(torch.mm(..., out_dtype=float32) on the card; the CPU upcasts the
-operands instead), while the logits product keeps the compute dtype.
-Master parameters, optimizer moments and weights stay float32.
+Each built function pins its own precision, chosen from cfg.precision
+when it is built, whatever the caller's global TF32 setting (no product
+of the port runs in TF32). dtype "float32" with precision "highest" is
+the parity mode: IEEE float32 products. "high" and "default" are the JAX
+package's definitions of those names, in bf16 limbs
+(_device.precision_limbs): on a CUDA device the float32 operand of each
+one-hot product (the couplings in the logits product, the residual in
+the gradient product) is split into 2 or 1 bf16 limbs, each limb runs
+one cuBLAS pass against the exactly-bf16 one-hot (torch.mm(...,
+out_dtype=float32)), and the passes are summed in float32
+(_limb_operand, _mm). On the CPU these products stay exact float32, as
+XLA-CPU ignores the precision in the JAX package. The per-site softmax
+sums and the weighted sums are float32 reductions at every precision.
+dtype "bfloat16" is the production mode: bf16 operands, with float32
+outputs on the gradient products (torch.mm(..., out_dtype=float32) on the
+card; the CPU upcasts the operands instead), while the logits product
+keeps the compute dtype. Master parameters, optimizer moments and
+weights stay float32.
 
 Solvers: "lbfgs" (ops/lbfgs.py), "adam" (the optax.adam formula; with
 fused_update="on", and "auto" on a CUDA device, the epilogue of each step
@@ -61,7 +72,9 @@ import numpy as np
 import torch
 
 from evcouplings_torch import parallel
-from evcouplings_torch._device import matmul_precision, resolve_device
+from evcouplings_torch._device import (
+    matmul_precision, precision_limbs, resolve_device,
+)
 from evcouplings_torch.kernels.seqdot import sequential_dot, sequential_dots
 from evcouplings_torch.ops.encode import one_hot, pad_rows, unflatten_J
 from evcouplings_torch.ops.lbfgs import init_lbfgs_state, make_lbfgs_chunk
@@ -154,6 +167,88 @@ def _mm_acc(a, b, acc):
     return a.to(acc) @ b.to(acc)
 
 
+def _split_limbs(x, n):
+    """n bfloat16 limbs of a float32 tensor, largest first: the first is x
+    rounded to bf16, each next one what the limbs before it leave of x,
+    rounded to bf16 (that rest is exact in float32). Two limbs hold x to
+    within 2^-17 of it, relative; three hold it exactly."""
+    limbs = [x.to(torch.bfloat16)]
+    rest = x
+    for _ in range(n - 1):
+        rest = rest - limbs[-1]
+        limbs.append(rest.to(torch.bfloat16))
+    return tuple(limbs)
+
+
+def _takes_limbs(dtype, limbs, device):
+    """Whether a fit's one-hot products split their float32 operand into
+    `limbs` bf16 limbs (precision_limbs of the fit's precision): at
+    "high" and "default", on float32, on a CUDA device. Otherwise they
+    are IEEE float32 at "highest" (limbs None), exact float32 on the CPU,
+    and bf16 or float64 products as they are."""
+    return (limbs is not None and dtype == torch.float32
+            and torch.device(device).type == "cuda")
+
+
+def _limb_operand(x, limbs):
+    """The float32 operand x of a one-hot product: the tuple of its bf16
+    limbs where the product takes them (_takes_limbs; _mm runs one pass
+    per limb), else x itself."""
+    return _split_limbs(x, limbs) if _takes_limbs(
+        x.dtype, limbs, x.device) else x
+
+
+def _exact_dtype(dtype, limbs, device):
+    """dtype of the exactly-bf16 operand (the one-hot) of a fit's products:
+    bfloat16 where the other one takes limbs (_takes_limbs), else the
+    compute dtype."""
+    return torch.bfloat16 if _takes_limbs(dtype, limbs, device) else dtype
+
+
+def _mm(a, b, out):
+    """a @ b with the output in `out` (_mm_acc). Where one operand is a
+    tuple of bf16 limbs (_limb_operand), the other is exactly bf16 (a
+    one-hot, cast to bf16 if it is not) and the product is one
+    torch.mm(..., out_dtype=float32) pass per limb, largest limb first,
+    each pass added to the sum of those before in float32; the output is
+    then float32."""
+    if not (isinstance(a, tuple) or isinstance(b, tuple)):
+        return _mm_acc(a, b, out)
+    a = a if isinstance(a, tuple) else (a.to(torch.bfloat16),)
+    b = b if isinstance(b, tuple) else (b.to(torch.bfloat16),)
+    total = None
+    for x in a:
+        for y in b:
+            p = _mm_acc(x, y, torch.float32)
+            total = p if total is None else total.add_(p)
+    return total
+
+
+def _transpose(x):
+    """x.T, or the transposes of a tuple of limbs."""
+    return tuple(t.T for t in x) if isinstance(x, tuple) else x.T
+
+
+def _residual_store(n, width, dtype, limbs, device):
+    """Buffer for the residuals of all row blocks of a two-phase layout:
+    one (n, width) tensor of the compute dtype, or where the gradient
+    product takes the limb route, one bf16 tensor per limb, filled a
+    block at a time (_store_rows): no whole float32 copy is split."""
+    if not _takes_limbs(dtype, limbs, device):
+        return torch.empty((n, width), dtype=dtype, device=device)
+    return tuple(torch.empty((n, width), dtype=torch.bfloat16,
+                             device=device) for _ in range(limbs))
+
+
+def _store_rows(store, rows, r):
+    """store[rows] = r, split into the store's limbs if it has them."""
+    if isinstance(store, tuple):
+        for buf, limb in zip(store, _split_limbs(r, len(store))):
+            buf[rows] = limb
+    else:
+        store[rows] = r
+
+
 def _diag_block_mask(L, q, dtype, device):
     """(Lq, Lq) mask that zeroes the L diagonal q x q blocks."""
     site = torch.arange(L * q, device=device) // q
@@ -207,15 +302,16 @@ def _build_j_aug(params, L, q, dtype, lq_aug, symmetric=False):
 def _block_nll_residual(J_aug, oh_aug, c, w, L, q, acc):
     """(block NLL contribution, residual r) for one row block.
 
-    oh_aug: (B, Lq_aug) augmented one-hot of codes c; w already in the
-    compute dtype. The per-site softmax sums are reductions over each
-    site's q lanes (the JAX package takes them as products against a
-    0/1 segment matrix; the sums are the same)."""
+    J_aug: the augmented couplings, or their limbs (_limb_operand);
+    oh_aug: (B, Lq_aug) augmented one-hot of codes c (bf16 beside limbs);
+    w already in the compute dtype. The per-site softmax sums are
+    reductions over each site's q lanes (the JAX package takes them as
+    products against a 0/1 segment matrix; the sums are the same)."""
     lq = L * q
     B = oh_aug.shape[0]
     oh = oh_aug[:, :lq]
 
-    logits = oh_aug @ J_aug
+    logits = _mm(oh_aug, J_aug, w.dtype)
     rowmax = logits.amax(dim=1, keepdim=True)
     e = torch.exp(torch.clamp(logits - rowmax, min=_SOFTMAX_SHIFT_FLOOR))
     Z = e.reshape(B, L, q).sum(dim=2, dtype=acc)
@@ -243,37 +339,43 @@ def _check_rows(n_pad, block_size):
             .format(n_pad, block_size))
 
 
-def _local_vg_carried(J_aug, codes, weights, L, q, block_size, acc):
+def _local_vg_carried(J_aug, codes, weights, L, q, block_size, acc,
+                      limbs=None):
     n_pad = codes.shape[0]
     _check_rows(n_pad, block_size)
     dtype = J_aug.dtype
+    device = J_aug.device
     lq = L * q
-    nll = torch.zeros((), dtype=acc, device=J_aug.device)
-    dJh = torch.zeros((lq, J_aug.shape[0]), dtype=acc, device=J_aug.device)
+    oh_dtype = _exact_dtype(dtype, limbs, device)
+    nll = torch.zeros((), dtype=acc, device=device)
+    dJh = torch.zeros((lq, J_aug.shape[0]), dtype=acc, device=device)
+    J_op = _limb_operand(J_aug, limbs)
     for start in range(0, n_pad, block_size):
         c = codes[start:start + block_size]
         w = weights[start:start + block_size].to(dtype)
-        oh_aug = build_augmented_onehot(c, q, dtype)
-        nll_b, r = _block_nll_residual(J_aug, oh_aug, c, w, L, q, acc)
+        oh_aug = build_augmented_onehot(c, q, oh_dtype)
+        nll_b, r = _block_nll_residual(J_op, oh_aug, c, w, L, q, acc)
         nll = nll + nll_b
-        dJh += _mm_acc(r.T, oh_aug, acc)
+        dJh += _mm(_limb_operand(r.T, limbs), oh_aug, acc)
     return nll, dJh
 
 
 def _local_vg_two_phase(J_aug, codes, weights, oh_all, L, q, block_size,
-                        acc):
+                        acc, limbs=None):
     n_pad = codes.shape[0]
     _check_rows(n_pad, block_size)
     dtype = J_aug.dtype
     lq = L * q
     nll = torch.zeros((), dtype=acc, device=J_aug.device)
-    r_all = torch.empty((n_pad, lq), dtype=dtype, device=J_aug.device)
+    r_all = _residual_store(n_pad, lq, dtype, limbs, J_aug.device)
+    J_op = _limb_operand(J_aug, limbs)
     for start in range(0, n_pad, block_size):
         sl = slice(start, start + block_size)
-        nll_b, r_all[sl] = _block_nll_residual(
-            J_aug, oh_all[sl], codes[sl], weights[sl].to(dtype), L, q, acc)
+        nll_b, r = _block_nll_residual(
+            J_op, oh_all[sl], codes[sl], weights[sl].to(dtype), L, q, acc)
+        _store_rows(r_all, sl, r)
         nll = nll + nll_b
-    return nll, _mm_acc(r_all.T, oh_all, acc)
+    return nll, _mm(_transpose(r_all), oh_all, acc)
 
 
 def _resolve_grad_layout(cfg, dtype, local_rows, lq_aug):
@@ -324,6 +426,12 @@ _PEAK_ARRAYS = {   # (fit, solver): (arrays, arrays per history pair)
 # value+grad pass holds at once (logits, their exponentials, the
 # residual and its factors)
 _BLOCK_TEMPORARIES = 5
+# what the limb route ("high"/"default" with float32 compute on a CUDA
+# device) adds: (Lq, Lq_aug) arrays, the couplings' bf16 limbs and the
+# float32 rest of their split, and (block, width) temporaries, the
+# residual's limbs and the rest of its split
+_LIMB_ARRAYS = 2
+_LIMB_TEMPORARIES = 2
 # the caching allocator's reserve over what a fit allocates: 1.01-1.37 in
 # chip_smoke.py --peak-memory, the most where differently sized row
 # blocks come and go beside few (Lq, Lq_aug) arrays
@@ -339,9 +447,10 @@ def estimate_fit_hbm_bytes(n, l, q, cfg, parametrization="symmetric",
     ((l_loc q, Lq_aug) in the asymmetric fit) beside the rows' working
     set of the gradient layout: the two-phase layout's resident one-hot
     and residuals plus a block's temporaries, or the carried layout's
-    block temporaries; then the codes, and 35% for the allocator. The
-    counts are the port's, read off the card's allocator: they exceed the
-    JAX package's (an eager step keeps its inputs while it builds its
+    block temporaries; then the codes, the limb route's arrays
+    (_LIMB_ARRAYS, counted wherever a float32 fit runs at "high" or
+    "default"), and 35% for the allocator. The counts are the port's,
+    read off the card's allocator: they exceed the JAX package's (an eager step keeps its inputs while it builds its
     outputs, where XLA reuses buffers). On an NVIDIA H100 80GB HBM3 at
     700 W, `python3 chip_smoke.py --peak-memory` found every fit route's
     reserved peak (parity and per-site LBFGS, Adam with and without the
@@ -383,7 +492,21 @@ def estimate_fit_hbm_bytes(n, l, q, cfg, parametrization="symmetric",
 
     base, per_pair = _PEAK_ARRAYS[key]
     arrays = base + per_pair * cfg.memory_size
+    if cfg.dtype == "float32" and precision_limbs(cfg.precision):
+        arrays += _LIMB_ARRAYS
+        rows += _LIMB_TEMPORARIES * block * lq_aug * comp
     return int(_ALLOCATOR_SLACK * (arrays * d * master + rows + codes_bytes))
+
+
+def _pinned(fn, precision):
+    """fn with its products at `precision` whatever the caller's global
+    TF32 setting (matmul_precision around every call)."""
+
+    def call(*args, **kwargs):
+        with matmul_precision(precision):
+            return fn(*args, **kwargs)
+
+    return call
 
 
 def make_plm_nll_vg(L, q, cfg, mesh=None):
@@ -391,25 +514,29 @@ def make_plm_nll_vg(L, q, cfg, mesh=None):
     data term and its raw closed-form gradient product (dJ_eff in
     columns :Lq, dh in column Lq). With a mesh, codes/weights/oh_aug are
     this rank's rows and the result is summed over the "data" ranks (one
-    all-reduce)."""
+    all-reduce). The products run at cfg.precision (see Precision
+    above); where they take limbs, oh_aug is best given in bf16
+    (_exact_dtype), as fit_plm builds it."""
     dtype = _compute_dtype(cfg.dtype)
     acc = _acc_dtype(dtype)
+    limbs = precision_limbs(cfg.precision)
     lq_aug = _augmented_width(L * q)
 
     def nll_vg(J_aug, codes, weights, oh_aug=None):
         layout = _resolve_grad_layout(cfg, dtype, codes.shape[0], lq_aug)
         if layout == "two_phase":
             if oh_aug is None:
-                oh_aug = build_augmented_onehot(codes, q, dtype)
+                oh_aug = build_augmented_onehot(
+                    codes, q, _exact_dtype(dtype, limbs, codes.device))
             nll, dJh = _local_vg_two_phase(J_aug, codes, weights, oh_aug, L,
-                                           q, cfg.block_size, acc)
+                                           q, cfg.block_size, acc, limbs)
         else:
             nll, dJh = _local_vg_carried(J_aug, codes, weights, L, q,
-                                         cfg.block_size, acc)
+                                         cfg.block_size, acc, limbs)
         dJh, nll = parallel.all_reduce_many([dJh, nll], mesh)
         return nll, dJh
 
-    return nll_vg
+    return _pinned(nll_vg, cfg.precision)
 
 
 def make_plm_value_and_grad(L, q, cfg, mesh=None, symmetric_params=False):
@@ -467,7 +594,7 @@ def make_plm_value_and_grad(L, q, cfg, mesh=None, symmetric_params=False):
         }
         return value, grads
 
-    return vg
+    return _pinned(vg, cfg.precision)
 
 
 def make_plm_loss(L, q, cfg, mesh=None, symmetric_params=False):
@@ -481,17 +608,20 @@ def make_plm_loss(L, q, cfg, mesh=None, symmetric_params=False):
     ranks (one all-reduce of one number)."""
     dtype = _compute_dtype(cfg.dtype)
     acc = _acc_dtype(dtype)
+    limbs = precision_limbs(cfg.precision)
     lq = L * q
 
     def local_nll(J_eff, h_flat, codes, weights):
         n_pad = codes.shape[0]
         _check_rows(n_pad, cfg.block_size)
         total = torch.zeros((), dtype=acc, device=J_eff.device)
+        oh_dtype = _exact_dtype(dtype, limbs, J_eff.device)
+        J_op = _limb_operand(J_eff.T, limbs)
         for start in range(0, n_pad, cfg.block_size):
             c = codes[start:start + cfg.block_size]
             w = weights[start:start + cfg.block_size].to(dtype)
-            oh = one_hot(c, q, dtype=dtype).reshape(-1, lq)
-            logits = oh @ J_eff.T + h_flat[None, :]
+            oh = one_hot(c, q, dtype=oh_dtype).reshape(-1, lq)
+            logits = _mm(oh, J_op, dtype) + h_flat[None, :]
             logp = torch.log_softmax(
                 logits.reshape(-1, L, q), dim=-1).reshape(-1, lq)
             per_seq = (oh * logp).sum(dim=1)
@@ -516,7 +646,7 @@ def make_plm_loss(L, q, cfg, mesh=None, symmetric_params=False):
                 torch.sum(blocks ** 2, dim=(1, 3)) + cfg.group_eps))
         return value + reg
 
-    return loss
+    return _pinned(loss, cfg.precision)
 
 
 def _resolve_fused_update(cfg, mesh, master_dtype,
@@ -1039,7 +1169,9 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
 
     layout = _resolve_grad_layout(cfg, compute_dtype, n_loc,
                                   _augmented_width(lq))
-    oh_d = (build_augmented_onehot(codes_d, q, compute_dtype)
+    oh_dtype = _exact_dtype(compute_dtype, precision_limbs(cfg.precision),
+                            device)
+    oh_d = (build_augmented_onehot(codes_d, q, oh_dtype)
             if layout == "two_phase" else None)
 
     vg_fn = make_plm_value_and_grad(L, q, cfg, mesh=mesh,

@@ -38,14 +38,17 @@ import numpy as np
 import torch
 
 from evcouplings_torch import parallel
-from evcouplings_torch._device import matmul_precision, resolve_device
+from evcouplings_torch._device import (
+    matmul_precision, precision_limbs, resolve_device,
+)
 from evcouplings_torch.ops.encode import one_hot, unflatten_J
 from evcouplings_torch.ops.lbfgs import (
     _C1, _C2, _GROW, _MAX_LS, _MIN_CURVATURE, _SHRINK,
 )
 from evcouplings_torch.ops.plm import (
     PlmConfig, PlmFitResult, _agree_on_resume, _bias_corrections,
-    _check_ckpt_fingerprint, _checkpoint, _compute_dtype, _mm_acc,
+    _check_ckpt_fingerprint, _checkpoint, _compute_dtype, _exact_dtype,
+    _limb_operand, _mm, _pinned, _residual_store, _store_rows, _transpose,
     fit_fingerprint, write_snapshot,
 )
 from evcouplings_torch.ops.plm_update import ADAM_B1, ADAM_B2, ADAM_EPS
@@ -80,13 +83,13 @@ def _make_block_residual(L, q, l_loc=None, m_idx=0):
 
     Returns block_residual(J_eff, h_c, rows, wb, oh) -> (nll_b (l_loc,)
     f32, this block's NLL per local site; residual (block, l_loc, q)
-    f32)."""
+    f32), where J_eff may be given as its limbs (ops/plm._limb_operand)."""
     l_loc = L if l_loc is None else l_loc
     local = slice(m_idx * l_loc, (m_idx + 1) * l_loc)
 
     def block_residual(J_eff, h_c, rows, wb, oh):
-        logits = (oh @ J_eff.T + h_c.reshape(l_loc * q)).reshape(
-            -1, l_loc, q)
+        logits = (_mm(oh, _transpose(J_eff), h_c.dtype)
+                  + h_c.reshape(l_loc * q)).reshape(-1, l_loc, q)
         logits = logits.to(F32)
         logp = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
         tgt = rows[:, local]
@@ -110,9 +113,13 @@ def _make_local_vg(L, q, cfg, two_phase=False, l_loc=None, m_idx=0,
 
     two_phase: the residuals of all blocks in the compute dtype, then ONE
     gradient product against the one-hot oh_all built once per fit;
-    otherwise (carried) a one-hot per block and an f32 accumulator."""
+    otherwise (carried) a one-hot per block and an f32 accumulator. The
+    products run at cfg.precision (ops/plm.py, Precision): on a CUDA
+    device, "high" and "default" take the float32 operand in bf16 limbs
+    against a bf16 one-hot."""
     l_loc = L if l_loc is None else l_loc
     dtype = _compute_dtype(cfg.dtype)
+    limbs = precision_limbs(cfg.precision)
     lq = L * q
     lq_loc = l_loc * q
     block = cfg.block_size
@@ -121,39 +128,48 @@ def _make_local_vg(L, q, cfg, two_phase=False, l_loc=None, m_idx=0,
     def local_vg(J, h, codes, w, oh_all=None):
         mask = _site_mask(L, q, dtype, J.device, l_loc, m_idx)
         J_eff = J.to(dtype) * mask
+        J_op = _limb_operand(J_eff, limbs)
         h_c = h.to(dtype)
         n = codes.shape[0]
         nll = torch.zeros((l_loc,), dtype=F32, device=J.device)
         if two_phase:
-            r_all = torch.empty((n, lq_loc), dtype=dtype, device=J.device)
+            r_all = _residual_store(n, lq_loc, dtype, limbs, J.device)
+            # beside limbs, dh sums each block's float32 residual
+            dh = (torch.zeros((l_loc, q), dtype=F32, device=J.device)
+                  if isinstance(r_all, tuple) else None)
             for start in range(0, n, block):
                 sl = slice(start, start + block)
-                nll_b, r = block_residual(J_eff, h_c, codes[sl], w[sl],
+                nll_b, r = block_residual(J_op, h_c, codes[sl], w[sl],
                                           oh_all[sl])
                 nll = nll + nll_b
-                r_all[sl] = r.reshape(-1, lq_loc).to(dtype)
-            dJ = _mm_acc(r_all.T, oh_all, F32)
-            dh = torch.sum(r_all.to(F32), dim=0).reshape(l_loc, q)
+                _store_rows(r_all, sl, r.reshape(-1, lq_loc).to(dtype))
+                if dh is not None:
+                    dh += torch.sum(r, dim=0)
+            dJ = _mm(_transpose(r_all), oh_all, F32)
+            if dh is None:
+                dh = torch.sum(r_all.to(F32), dim=0).reshape(l_loc, q)
         else:
             dJ = torch.zeros((lq_loc, lq), dtype=F32, device=J.device)
             dh = torch.zeros((l_loc, q), dtype=F32, device=J.device)
+            oh_dtype = _exact_dtype(dtype, limbs, J.device)
             for start in range(0, n, block):
                 rows = codes[start:start + block]
-                oh = one_hot(rows, q, dtype=dtype).reshape(-1, lq)
-                nll_b, r = block_residual(J_eff, h_c, rows,
+                oh = one_hot(rows, q, dtype=oh_dtype).reshape(-1, lq)
+                nll_b, r = block_residual(J_op, h_c, rows,
                                           w[start:start + block], oh)
                 nll = nll + nll_b
-                dJ += _mm_acc(r.reshape(-1, lq_loc).to(dtype).T, oh, F32)
+                r_t = _limb_operand(r.reshape(-1, lq_loc).to(dtype).T, limbs)
+                dJ += _mm(r_t, oh, F32)
                 dh += torch.sum(r, dim=0)
         # masked in place, with the mask above where it is float32: no
         # second (l_loc q, Lq) mask or product beside dJ
-        del J_eff
+        del J_eff, J_op
         if dtype != F32:
             mask = _site_mask(L, q, F32, J.device, l_loc, m_idx)
         dJ.mul_(mask)
         return parallel.all_reduce_many([nll, dJ, dh], mesh)
 
-    return local_vg
+    return _pinned(local_vg, cfg.precision)
 
 
 def _group_terms(J, q, cfg):
@@ -552,8 +568,9 @@ def fit_plm_asym(codes, weights, num_symbols,
                  torch.zeros_like(h), torch.zeros_like(h), 0)
         adam_chunk = _make_adam_chunk(L_pad, q, cfg, two_phase, **sites)
         if two_phase:
-            oh_d = one_hot(codes_d, q, dtype=compute_dtype).reshape(
-                n_loc, lq_pad)
+            oh_d = one_hot(codes_d, q, dtype=_exact_dtype(
+                compute_dtype, precision_limbs(cfg.precision),
+                device)).reshape(n_loc, lq_pad)
 
         def chunk(J, h, state):
             return adam_chunk(J, h, state, codes_d, w_d, oh_d)

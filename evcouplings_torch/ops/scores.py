@@ -10,6 +10,7 @@ model artifacts use; the *_device functions compute the same on tensors.
 import numpy as np
 import torch
 
+from evcouplings_torch._device import matmul_precision
 from evcouplings_torch.ops.encode import one_hot
 from evcouplings_torch.ops.gauge import zero_sum_gauge, zero_sum_gauge_device
 
@@ -128,9 +129,12 @@ def mi_apc_from_codes(matrix_mapped, identity_threshold, num_symbols=None,
 
     oh = one_hot(codes, q, dtype=torch.float32).reshape(n, lq)
     w_sum = w.sum()
-    fi = (w @ oh).reshape(L, q) / w_sum
-    fij = ((oh * w[:, None]).T @ oh).reshape(L, q, L, q).permute(
-        0, 2, 1, 3) / w_sum
+    # IEEE products whatever the caller's TF32 setting (the JAX package
+    # pins these to Precision.HIGHEST)
+    with matmul_precision("highest"):
+        fi = (w @ oh).reshape(L, q) / w_sum
+        fij = ((oh * w[:, None]).T @ oh).reshape(L, q, L, q).permute(
+            0, 2, 1, 3) / w_sum
     diag = fi[:, :, None] * torch.eye(q, dtype=fi.dtype, device=fi.device)
     eye = torch.eye(L, dtype=torch.bool, device=fi.device)[:, :, None, None]
     fij = torch.where(eye, diag[:, None], fij)

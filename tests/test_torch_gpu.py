@@ -290,3 +290,119 @@ def test_device_codes_default_to_the_card(cuda):
     got = device_codes(m, torch.int8)
     assert got.dtype == torch.int8 and got.device.type == "cuda"
     assert torch.equal(got.cpu(), torch.as_tensor(m, dtype=torch.int8))
+
+
+def _set_tf32(on):
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def _plm_inputs(cuda, N=2048, L=60, q=21, seed=5):
+    """Codes with gaps, weights and float32 parameters (J ~ N(0, 0.05^2),
+    symmetric with zero diagonal blocks) on the card."""
+    from evcouplings_torch.ops import plm as tp
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-1, q, size=(N, L)).astype(np.int8)
+    lq = L * q
+    site = np.arange(lq) // q
+    A = rng.normal(size=(lq, lq)) * 0.05
+    params = {
+        "J": torch.as_tensor((0.5 * (A + A.T) * (site[:, None] != site[
+            None, :])).astype(np.float32), device=cuda),
+        "h": torch.as_tensor((rng.normal(size=(L, q)) * 0.05).astype(
+            np.float32), device=cuda)}
+    w = torch.as_tensor((rng.random(N) + 0.2).astype(np.float32),
+                        device=cuda)
+    c = torch.as_tensor(codes, device=cuda)
+    oh = tp.build_augmented_onehot(c, q, torch.float32)
+    return L, q, c, w, params, oh
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_high_precision_within_1e5_of_float64(cuda, tf32):
+    """One evaluation at "high" (two bf16 limb passes): the logits and the
+    raw gradient dJh within 1e-5 of the float64 products of the same
+    float32 operands, relative to the largest value, whatever the global
+    TF32 flag; "default" (one limb) at least 10x further."""
+    from evcouplings_torch._device import matmul_precision, precision_limbs
+    from evcouplings_torch.ops import plm as tp
+
+    L, q, c, w, params, oh = _plm_inputs(cuda)
+    lq_aug = tp._augmented_width(L * q)
+
+    def evaluate(dtype, precision):
+        cfg = tp.PlmConfig(dtype={torch.float32: "float32",
+                                  torch.float64: "float64"}[dtype],
+                           precision=precision, block_size=512)
+        p = {k: v.to(dtype) for k, v in params.items()}
+        J_aug = tp._build_j_aug(p, L, q, dtype, lq_aug, symmetric=True)
+        limbs = precision_limbs(precision)
+        with matmul_precision(precision):
+            logits = tp._mm(oh.to(tp._exact_dtype(dtype, limbs, cuda)),
+                            tp._limb_operand(J_aug, limbs), dtype)
+        _, dJh = tp.make_plm_nll_vg(L, q, cfg)(J_aug, c, w.to(dtype))
+        return logits.double(), dJh.double()
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        _set_tf32(tf32)
+        ref = evaluate(torch.float64, "highest")
+        errs = {p: [rel(g, r) for g, r in zip(evaluate(torch.float32, p),
+                                                ref)]
+                for p in ("high", "default")}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    assert max(errs["high"]) <= 1e-5, errs
+    assert max(errs["high"]) * 10 <= min(errs["default"]), errs
+
+
+def test_products_ignore_the_global_tf32_flag(cuda):
+    """"highest" and "high" value+grads, frequencies, MI scores and
+    Hamiltonians are bitwise equal with the global TF32 flag set and
+    unset: every float32 product pins its own precision."""
+    from evcouplings_torch.ops import plm as tp
+    from evcouplings_torch.ops.frequencies import pair_frequencies
+    from evcouplings_torch.ops.hamiltonian import hamiltonians_device
+    from evcouplings_torch.ops.scores import mi_apc_from_codes
+
+    L, q, c, w, params, _ = _plm_inputs(cuda, N=1024, L=30)
+    codes = c.cpu().numpy()
+    seqs = np.maximum(codes, 0)[:256]
+    wn = w.cpu().numpy()
+    J_ij = np.random.default_rng(3).normal(size=(L, L, q, q)) * 0.1
+    h_i = np.random.default_rng(4).normal(size=(L, q))
+    fi = np.full((L, q), 1.0 / q)
+
+    def run():
+        out = []
+        for precision in ("highest", "high"):
+            cfg = tp.PlmConfig(dtype="float32", precision=precision,
+                               block_size=512, lambda_J=0.3)
+            v, g = tp.make_plm_value_and_grad(L, q, cfg,
+                                              symmetric_params=True)(
+                params, c, w)
+            out += [v.cpu().numpy(), g["J"].cpu().numpy(),
+                    g["h"].cpu().numpy()]
+        out.append(pair_frequencies(codes, wn, q, fi, device=cuda))
+        out += list(mi_apc_from_codes(codes, 0.8, q, device=cuda))
+        out.append(hamiltonians_device(seqs, J_ij, h_i, device=cuda))
+        return out
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        _set_tf32(False)
+        off = run()
+        _set_tf32(True)
+        on = run()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    for a, b in zip(off, on):
+        np.testing.assert_array_equal(a, b)

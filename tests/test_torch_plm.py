@@ -286,18 +286,28 @@ def test_device_hbm_budget(monkeypatch):
 
 
 def test_matmul_precision_restores_flags():
-    from evcouplings_torch._device import matmul_precision
+    """TF32 is off inside the block under every precision name, whatever
+    the flags were (no product of the port runs in TF32: "high" and
+    "default" are bf16 limb passes, chosen by the products themselves),
+    and the flags are restored on exit."""
+    from evcouplings_torch._device import PRECISIONS, matmul_precision
 
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    with matmul_precision("highest"):
-        assert not torch.backends.cuda.matmul.allow_tf32
-        assert not torch.backends.cudnn.allow_tf32
-    with matmul_precision("high"):
-        assert torch.backends.cuda.matmul.allow_tf32
-        assert torch.backends.cudnn.allow_tf32
-    assert (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32) == saved
+    def flags():
+        return (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
+    saved = flags()
+    try:
+        for before in (True, False):
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = (before, before)
+            for name in PRECISIONS:
+                with matmul_precision(name):
+                    assert flags() == (False, False), name
+                assert flags() == (before, before), name
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
     with pytest.raises(ValueError):
         with matmul_precision("fastest"):
             pass
