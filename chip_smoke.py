@@ -54,8 +54,11 @@ runs the port's examples as a user does: every script of
 examples_torch/, every notebook of notebooks_torch/ and both example job
 configs, in one child process on the card (`chip_smoke.py
 --phase14-worker ...`) and in one on the host at the same time, holds
-the two against each other (tests/examples_fixtures.py), then runs
-monomer_pipeline.yml once more on the card at full width. Every phase
+the two against each other (tests/examples_fixtures.py), splits the
+balanced fit's card-host drift by running complex_pipeline.yml once more
+in the card's child with its LBFGS dots forced to K4's chain (the limbs'
+share), then runs monomer_pipeline.yml once more on the card at full
+width. Every phase
 raises on a mismatch; nothing is caught, except that a machine without
 matplotlib cannot draw the mutate stage's plots (nor the complex
 concatenation's distance plot, nor the sweep's summary figure: its
@@ -3276,8 +3279,10 @@ def phase13(tmp, full, align_kw, deltas, refs, not_produced):
 # phase 14: the port's examples (examples_torch/), notebooks
 # (notebooks_torch/) and example job configs as a user runs them: every
 # item in one child process on the card and again in one on the host, held
-# against each other (tests/examples_fixtures.py); then the monomer config
-# once more on the card at full width
+# against each other (tests/examples_fixtures.py), and the complex config
+# once more on the card with the sequential LBFGS dot (the balanced
+# drift's split); then the monomer config once more on the card at full
+# width
 # ---------------------------------------------------------------------------
 
 # the fits' tolerances card against host (tests/examples_fixtures.py and
@@ -3382,9 +3387,44 @@ def phase14_worker(tree, record):
                     "stdout": stdout.getvalue(),
                     "seconds": time.perf_counter() - t,
                     "launches": launches})
+    chain = None if host else phase14_chain_run(tree)
     with open(record, "w") as f:
-        json.dump({"items": out, "not_drawn": not_drawn}, f)
+        json.dump({"items": out, "not_drawn": not_drawn, "chain": chain},
+                  f)
     return 0
+
+
+def phase14_chain_run(tree):
+    """complex_pipeline.yml once more on the card, into
+    output/pipeline_complex_chain/, with its balanced LBFGS fit's dots
+    taken by K4 (the sequential chain) instead of torch.dot: the run
+    that splits the balanced mode's card-host drift into the limbs'
+    share and the dot order's. The chain is forced here only, by
+    wrapping ops.plm._lbfgs_dots for this run (the float32 fit takes
+    parity's dots on its device); {seconds, launches}."""
+    import contextlib
+    import io
+
+    from evcouplings_torch.ops import plm
+    from evcouplings_torch.utils import pipeline
+    from evcouplings_torch.utils.config import read_config_file
+
+    os.chdir(tree)
+    config = read_config_file(os.path.join("examples_torch",
+                                           "complex_pipeline.yml"))
+    config["global"]["prefix"] = config["global"]["prefix"].replace(
+        "pipeline_complex", "pipeline_complex_chain")
+    shipped = plm._lbfgs_dots
+    plm._lbfgs_dots = lambda compute_dtype, precision, device: shipped(
+        compute_dtype, "highest", device)
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, launches = counted(
+                lambda: pipeline.execute_wrapped(**config))
+    finally:
+        plm._lbfgs_dots = shipped
+    return {"seconds": time.perf_counter() - t, "launches": launches}
 
 
 def phase14_start(tmp, side):
@@ -3528,6 +3568,18 @@ def phase14_compare(trees, records):
                     == want[key].head(8).values).all(), table
             if table.endswith("_inter.csv"):
                 assert (got.i.iloc[0], got.j.iloc[0]) == (8, 4)
+    # the balanced drift's split: the card's chain run (limbs, K4)
+    # against the host's run is the limbs' share; the shipped run (limbs,
+    # torch.dot) adds the dot order's
+    got = CouplingsModel(out("card", "pipeline_complex_chain", "demo",
+                             "couplings", "demo.model"))
+    want = CouplingsModel(out("host", "pipeline_complex", "demo",
+                              "couplings", "demo.model"))
+    dist = model_distance(got, want)
+    assert dist["f_i"] <= 1e-6 and dist["f_ij"] <= 1e-6, dist
+    assert dist["J_ij"] <= DEEP_REL and dist["h_i"] <= DEEP_REL, (
+        "pipeline_complex_chain", dist)
+    models["pipeline_complex_chain"] = dist
     got, want = (np.load(out(s, "tutorial_distances",
                              "demo_distance_map.npy"))
                  for s in ("card", "host"))
@@ -3583,6 +3635,18 @@ def phase14(tmp, full, not_produced):
         ".model distances {}; kernel launches on the card by item "
         "{}".format(json.dumps(worst), json.dumps(models),
                     json.dumps(launches)))
+    chain = records["card"]["chain"]
+    assert launches["complex_pipeline.yml"]["K4"] == 0, launches
+    assert chain["launches"]["K4"] > 0, chain
+    shipped, limbs = models["pipeline_complex"], models[
+        "pipeline_complex_chain"]
+    log("phase 14 balanced drift split, complex_pipeline.yml card vs host "
+        "(J_ij, h_i relative Frobenius): as shipped (limbs, torch.dot) {}, "
+        "{}; limbs alone (limbs, K4 chain) {}, {}; the dot order adds {}, "
+        "{}; the chain run {:.2f} s, launches {}".format(
+            shipped["J_ij"], shipped["h_i"], limbs["J_ij"], limbs["h_i"],
+            shipped["J_ij"] - limbs["J_ij"], shipped["h_i"] - limbs["h_i"],
+            chain["seconds"], json.dumps(chain["launches"])))
     state, counts, full_secs = phase14_full_width(tmp, full)
     launches["monomer_pipeline.yml full width"] = counts
     log("phase 14 monomer_pipeline.yml at full width (N={} after the "
@@ -4039,8 +4103,10 @@ def main():
         ("balanced", dict(iterations=5, solver="lbfgs",
                           compute_dtype="float32", matmul_precision="high")),
     )
+    k4_by_mode = {}
     for mode, kw in modes:
         table = []
+        k4_before = k_seqdot.sequential_dots.launches
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = run_plm(a2m, os.path.join(tmp, mode + "_ECs.txt"),
@@ -4048,6 +4114,7 @@ def main():
                       callback=table.append, **common, **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
+        k4_by_mode[mode] = k_seqdot.sequential_dots.launches - k4_before
         fx = [r["fx"] for r in table]
         assert len(fx) == kw["iterations"], (mode, len(fx))
         assert np.all(np.isfinite(fx)), (mode, fx)
@@ -4077,6 +4144,11 @@ def main():
     log("phase 5 launches on the main path:", json.dumps(launches))
     for k in ("K1", "K2", "K4"):
         assert launches[k] > 0, (k, launches)
+    # the LBFGS dot per backend on the card: K4 in parity mode only; the
+    # balanced fit ("high") takes torch.dot
+    log("phase 5 K4 launches by mode: {}".format(json.dumps(k4_by_mode)))
+    assert k4_by_mode["parity"] > 0 and k4_by_mode["balanced"] == 0, \
+        k4_by_mode
 
     # ---- phase 5b: where the time goes: one more fit of each mode under
     # torch.profiler; device time by kernel and the device's busy share of

@@ -288,7 +288,11 @@ def infer_plmc(**kwargs):
         #   "parity"     — float32 with "highest" matmul precision (IEEE
         #                  float32 products, every LBFGS dot a sequential
         #                  FMA chain: K4 on the card)
-        #   "balanced"   — float32 state, "high" matmuls (TF32 allowed)
+        #   "balanced"   — float32 state, "high" matmuls: two bf16 limb
+        #                  passes on the one-hot products on the card (no
+        #                  product runs in TF32), LBFGS dots by torch.dot;
+        #                  on the CPU exact float32 products and the
+        #                  sequential chain, the parity fit's arithmetic
         #   "production" — bfloat16 compute with float32 master
         #                  parameters (with the adam solver, the fused
         #                  update K2 on the card)

@@ -90,9 +90,12 @@ def make_lbfgs_chunk(vg, *, m=5, steps_per_call=1, max_ls=_MAX_LS,
         each step. With norm_split=d, two extra columns
         [||x[d:]||, ||x[:d]||] report the field / coupling norms.
 
-    dot : the vector dot product of every scalar the engine takes
-        (torch.dot, or kernels.seqdot.sequential_dot to reproduce the
-        JAX engine's CPU rounding in parity mode).
+    dot : the vector dot product of every scalar the engine takes:
+        torch.dot, or kernels.seqdot.sequential_dot to reproduce the JAX
+        engine's CPU rounding. fit_plm picks it per backend
+        (ops.plm._lbfgs_dots): the chain for every float32 fit on the
+        CPU and for parity mode (float32, "highest") on a CUDA device,
+        torch.dot for the others.
     dots : (xs, ys) -> [dot(x, y) for each pair], the same products taken
         as one batch of independent dots (kernels.seqdot.sequential_dots:
         one launch); None takes them one at a time with `dot`. The engine

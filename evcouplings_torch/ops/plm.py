@@ -857,15 +857,21 @@ def restore_snapshot(ckpt, solver, L, q, dtype, device, memory_size=5):
     return params, state, int(ckpt["iteration"])
 
 
-def _lbfgs_dots(compute_dtype, precision):
+def _lbfgs_dots(compute_dtype, precision, device):
     """The LBFGS engine's dot product and its batch of independent dots,
-    (dot, dots). Parity mode (float32, precision "highest") takes every
-    dot as one fused multiply-add chain in index order (K4 on the card,
-    a batch in one launch), the arithmetic of the JAX engine on the CPU:
-    the 40-iteration golden fit moves by ~1e-3 under any other summation
-    order. Every other mode uses torch.dot (dots None: the engine takes
-    a batch as torch.dots one after another)."""
-    if compute_dtype == torch.float32 and precision.startswith("highest"):
+    (dot, dots), by the tensors' device, as _takes_limbs rules the
+    one-hot products. A float32 fit on the CPU takes every dot as one
+    fused multiply-add chain in index order (the host chain), whatever
+    its precision name: the JAX engine's arithmetic on the CPU, which
+    its parity, balanced and "default" fits share bit for bit. On a CUDA
+    device only parity mode (float32, "highest") takes the chain (K4, a
+    batch in one launch): the 40-iteration golden fit moves by ~1e-3
+    under any other summation order. Every other fit, and bfloat16
+    compute on either device, uses torch.dot (dots None: the engine
+    takes a batch as torch.dots one after another)."""
+    if compute_dtype == torch.float32 and (
+            torch.device(device).type == "cpu"
+            or precision.startswith("highest")):
         return sequential_dot, sequential_dots
     return torch.dot, None
 
@@ -1209,7 +1215,7 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
                 return value.to(dtype), torch.cat(
                     [grads["J"].reshape(-1), grads["h"].reshape(-1)])
 
-            dot, dots = _lbfgs_dots(compute_dtype, cfg.precision)
+            dot, dots = _lbfgs_dots(compute_dtype, cfg.precision, device)
             lb_chunk = make_lbfgs_chunk(
                 vg_flat, m=cfg.memory_size, steps_per_call=steps_per_call,
                 conv_tol=cfg.conv_tol, norm_split=dsize,

@@ -258,9 +258,9 @@ def _parallel_suite(out_dir):
 def _distributed_suite(out_dir):
     """The fits on meshes (world 4): the symmetric fit on 2 and 3 ranks
     for each solver, the asymmetric one on (1, 2) and (2, 2) meshes, the
-    checkpoint guard, and the couplings stage with fit_devices 2. Rank 0
-    also runs each fit in one process, for the comparisons that must be
-    bitwise."""
+    balanced LBFGS fit on one rank, the checkpoint guard, and the
+    couplings stage with fit_devices 2. Rank 0 also runs each fit in one
+    process, for the comparisons that must be bitwise."""
     from evcouplings_torch import parallel
     from evcouplings_torch.couplings import protocol
     from evcouplings_torch.ops import plm
@@ -290,6 +290,21 @@ def _distributed_suite(out_dir):
         if rank == 0:
             out["asym", case, 1] = _fit_result(fit_plm_asym(
                 codes, w, q, PlmConfig(**kw), device="cpu"))
+
+    # the balanced LBFGS fit ("high") on a mesh of one rank, without a
+    # mesh, and the parity fit ("highest") without one: on the CPU each
+    # takes the sequential chain
+    codes, w, q, kw = fit_case("lbfgs")
+    mesh1 = parallel.make_mesh(1, device="cpu")
+    if mesh1.coords is not None:
+        out["balanced"] = {
+            name: _fit_result(fit_plm(
+                codes, w, q, PlmConfig(**dict(kw, precision=precision)),
+                **where))
+            for name, precision, where in (
+                ("mesh", "high", {"mesh": mesh1}),
+                ("one", "high", {"device": "cpu"}),
+                ("parity", "highest", {"device": "cpu"}))}
 
     # checkpoints: a file only rank 0 can see (a per-rank directory, the
     # stand-in for host-local disk) makes every rank raise

@@ -19,6 +19,7 @@ SOLVERS = [
     ("adam", {}),
     ("adam", {"fused_update": "on"}),
     ("lbfgs", {}),
+    ("lbfgs", {"precision": "high"}),
     ("fista", {"lambda_group": 0.5}),
 ]
 

@@ -1,8 +1,9 @@
 """The port's sharded fits over torch.distributed against the JAX
 package's sharded fits and against the port in one process: the symmetric
-fit (adam, lbfgs, fista) on meshes of 2 and 3 ranks, the asymmetric fit on
-(1, 2) and (2, 2) ("data", "model") meshes, the checkpoint guard, and the
-couplings `standard` stage with fit_devices 2.
+fit (adam, lbfgs, fista) on meshes of 2 and 3 ranks, the balanced LBFGS
+fit on one rank, the asymmetric fit on (1, 2) and (2, 2) ("data", "model")
+meshes, the checkpoint guard, and the couplings `standard` stage with
+fit_devices 2.
 
 Four gloo workers on the CPU (tests/dist_fixtures.py, started once for
 the module) are the ranks; the first 2 or 3 of them form a mesh, the
@@ -165,6 +166,21 @@ def test_asym_mesh_fit_matches_one_process_and_jax(run, case):
     for res in ranks[1:size]:
         for key in ("J", "h", "fx"):
             np.testing.assert_array_equal(res["asym", case][key], got[key])
+
+
+def test_balanced_mesh_fit_equals_fit_without_mesh(run):
+    """fit_plm(mesh=) on one gloo rank at "high" (the balanced mode's
+    precision) equals the fit without a mesh bitwise, and both equal the
+    parity fit ("highest") bitwise: on the CPU the sharded path takes
+    the host's sequential LBFGS dot too."""
+    ranks, _, _ = run
+    got = ranks[0]["balanced"]
+    for want in ("one", "parity"):
+        assert got["mesh"]["num_iter"] == got[want]["num_iter"]
+        for key in ("J", "h", "fx"):
+            np.testing.assert_array_equal(got["mesh"][key], got[want][key],
+                                          err_msg=(want, key))
+    assert all("balanced" not in res for res in ranks[1:])
 
 
 @pytest.mark.parametrize("rank", range(WORLD))

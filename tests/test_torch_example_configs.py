@@ -12,8 +12,9 @@ examples directories, as the configs' relative paths assume.
   order, fn and cn within PRODUCTION_REL, J and h within PRODUCTION_REL
   (relative Frobenius distance);
 - complex: best_hit concatenation, then couplings `complex` with LBFGS in
-  balanced mode (60 iterations, "high" matmuls and no sequential dots,
-  so one-ulp differences grow faster than in parity mode): the
+  balanced mode (60 iterations, "high" matmuls; on the host the port's
+  products are exact float32 and its LBFGS dots the sequential chain,
+  the JAX package's XLA-CPU arithmetic at any precision name): the
   concatenated alignment byte for byte, the planted inter pair first in
   both `_CouplingScores_inter.csv`, the top 8 inter and all-EC pairs in
   the same order, fn and cn within BALANCED_REL, J and h within
@@ -33,9 +34,9 @@ from examples_fixtures import EXAMPLES, EXAMPLES_TORCH, REPO, model_distance
 
 # measured on the host, port against the JAX package (the tests print
 # them; pytest -s): J 1.33e-4 and h 3.8e-5 relative (production Adam); J
-# 8.5e-3 and h 1.86e-2 (balanced LBFGS)
+# 1.65e-4 and h 3.43e-4 (balanced LBFGS)
 PRODUCTION_REL = 2e-3
-BALANCED_REL = 5e-2
+BALANCED_REL = PRODUCTION_REL
 
 
 @pytest.fixture(scope="module")

@@ -110,6 +110,43 @@ def test_matches_jax_run_plm(refit):
                                rj.iteration_table.fx.values, rtol=1e-5)
 
 
+@pytest.fixture(scope="module", params=["high", "default"])
+def balanced_refit(request, tmp_path_factory):
+    """The golden fit at a balanced precision name, through both
+    packages. On the CPU the JAX engine's every LBFGS dot is XLA-CPU's
+    sequential chain and its one-hot products exact float32, whatever
+    the name: its fit is its parity fit."""
+    precision = request.param
+    kw = dict(GOLDEN_KW, matmul_precision=precision)
+    return precision, _both(tmp_path_factory.mktemp("torch_" + precision),
+                            "golden.a2m", kw)
+
+
+def test_matches_jax_run_plm_at_balanced_precision(balanced_refit):
+    """The port's "high" and "default" fits on the host against the JAX
+    twin's at the golden gate (RTOL 1e-4, ATOL 1e-5), with exact rank
+    order. With torch.dot in the LBFGS engine instead of the twin's
+    chain the 40-iteration fit drifts to ~8e-3 in J."""
+    _, out = balanced_refit
+    _check_ecs(out["torch"][0], out["jax"][0])
+    _check_models(JaxModel(out["torch"][1]), JaxModel(out["jax"][1]))
+    np.testing.assert_allclose(out["torch"][2].iteration_table.fx.values,
+                               out["jax"][2].iteration_table.fx.values,
+                               rtol=1e-5)
+
+
+def test_balanced_precision_files_equal_parity(balanced_refit, refit):
+    """On the host the port's "high" and "default" fits are its parity
+    fit: the .model and EC files byte for byte equal to the "highest"
+    fit's (written under the same names)."""
+    precision, out = balanced_refit
+    for tag in ("torch_ECs.txt", "torch.model"):
+        with open(os.path.join(os.path.dirname(refit["torch"][1]),
+                               tag), "rb") as a, open(os.path.join(
+                os.path.dirname(out["torch"][1]), tag), "rb") as b:
+            assert a.read() == b.read(), (precision, tag)
+
+
 def test_gappy_group_l1_fit(tmp_path):
     """The second fixture (heavy gaps, ignore_gaps, smoothed group-L1).
     Here the host's gradient product rounds a few ulps away from the JAX

@@ -406,3 +406,22 @@ def test_products_ignore_the_global_tf32_flag(cuda):
          torch.backends.cudnn.allow_tf32) = saved
     for a, b in zip(off, on):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("precision,takes_k4", [
+    ("highest", True), ("high", False), ("default", False)])
+def test_card_lbfgs_takes_k4_only_in_parity(cuda, precision, takes_k4):
+    """On the card the float32 LBFGS fit takes K4 for its dots at
+    "highest" (parity) and torch.dot at "high" and "default" (the
+    balanced mode): the host's chain is never taken for a CUDA tensor."""
+    from evcouplings_torch.kernels import seqdot
+    from evcouplings_torch.ops.plm import PlmConfig, fit_plm
+
+    rng = np.random.default_rng(10)
+    codes = rng.integers(0, 5, size=(300, 12)).astype(np.int8)
+    before = seqdot.sequential_dots.launches
+    res = fit_plm(codes, np.ones(300), 5,
+                  PlmConfig(max_iter=4, block_size=64, solver="lbfgs",
+                            conv_tol=0.0, precision=precision), device=cuda)
+    assert np.isfinite(res.J_ij).all() and np.isfinite(res.h_i).all()
+    assert (seqdot.sequential_dots.launches > before) == takes_k4

@@ -248,3 +248,54 @@ def test_asymmetric_card_route_against_float64(two_phase, monkeypatch):
             two_phase and precision == "high") else oh)
     for got, want in zip(outs["high"], outs["highest"]):
         assert _rel(got, want) <= 1e-5
+
+
+def test_card_route_balanced_drift_split(tmp_path, monkeypatch):
+    """The complex example config's balanced LBFGS fit (60 iterations,
+    "high") on the card's route, let onto the CPU, against the host's own
+    fit (exact float32 products, the sequential LBFGS dot: the JAX twin's
+    arithmetic): once with the card's LBFGS dot (torch.dot), once with the
+    sequential chain, so that the limbs' share of the card-host drift
+    shows apart from the dot order's (chip_smoke.py phase 14 splits it on
+    the card). Each within DEEP_REL (2e-2) in J and h, the limit phase 14
+    holds the card to; the distances are printed (pytest -s)."""
+    import shutil
+
+    import yaml
+
+    from examples_fixtures import DEEP_REL, EXAMPLES_TORCH, model_distance
+    from evcouplings_torch.couplings.model import CouplingsModel
+    from evcouplings_torch.utils import pipeline
+
+    shutil.copytree(EXAMPLES_TORCH, str(tmp_path / "examples_torch"),
+                    ignore=shutil.ignore_patterns("output", "__pycache__"))
+    monkeypatch.chdir(tmp_path)
+    with open(tmp_path / "examples_torch" / "complex_pipeline.yml") as f:
+        base = yaml.safe_load(f)
+    shipped = tp._lbfgs_dots
+    routes = {
+        "host": shipped,
+        "card": lambda dtype, precision, device: shipped(
+            dtype, precision, "cuda"),
+        "card_chain": lambda dtype, precision, device: shipped(
+            dtype, "highest", "cuda"),
+    }
+    models = {}
+    for name, dots in routes.items():
+        config = dict(base, **{"global": dict(
+            base["global"], device="cpu",
+            prefix="output/{}/demo".format(name))})
+        with monkeypatch.context() as m:
+            if name != "host":
+                _emulate_card_route(m)
+                m.setattr(tp, "_lbfgs_dots", dots)
+            pipeline.execute_wrapped(**config)
+        models[name] = CouplingsModel(str(
+            tmp_path / "output" / name / "demo" / "couplings" /
+            "demo.model"))
+    for name in ("card", "card_chain"):
+        dist = model_distance(models[name], models["host"])
+        print("card route against the host,", name, dist)
+        assert dist["f_i"] == 0.0 and dist["f_ij"] == 0.0, (name, dist)
+        assert dist["J_ij"] <= DEEP_REL and dist["h_i"] <= DEEP_REL, (
+            name, dist)

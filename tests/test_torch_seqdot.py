@@ -246,9 +246,26 @@ def test_batched_engine_is_bitwise_the_unbatched_one(norm_split,
     assert new.calls < ref.calls
 
 
-def test_parity_fit_takes_batched_dots():
+PRECISIONS = ("highest", "highest_unstructured", "high",
+              "high_unstructured", "default")
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_parity_fit_takes_batched_dots(device):
+    """The LBFGS dot per backend (the device is passed as a value; no
+    card is needed): on the CPU every float32 fit takes the chain, the
+    JAX engine's XLA-CPU dot under every precision name; on a CUDA
+    device only "highest" does (K4); bfloat16 compute takes torch.dot on
+    both."""
     from evcouplings_torch.ops.plm import _lbfgs_dots
 
-    assert _lbfgs_dots(torch.float32, "highest") == (sequential_dot,
-                                                     sequential_dots)
-    assert _lbfgs_dots(torch.bfloat16, "default") == (torch.dot, None)
+    chain = (sequential_dot, sequential_dots)
+    for precision in PRECISIONS:
+        want = (chain if device == "cpu" or precision.startswith("highest")
+                else (torch.dot, None))
+        assert _lbfgs_dots(torch.float32, precision, device) == want, \
+            precision
+        assert _lbfgs_dots(torch.float32, precision,
+                           torch.device(device)) == want, precision
+        assert _lbfgs_dots(torch.bfloat16, precision, device) == (
+            torch.dot, None), precision
