@@ -58,7 +58,10 @@ the two against each other (tests/examples_fixtures.py), splits the
 balanced fit's card-host drift by running complex_pipeline.yml once more
 in the card's child with its LBFGS dots forced to K4's chain (the limbs'
 share), then runs monomer_pipeline.yml once more on the card at full
-width. Every phase
+width. Phase 15 runs bench_torch.py --all (the port's twin of bench.py) in
+this process at bench.py's shapes, its kernel launches counted over the
+whole run (K1 and K4 must launch), checks and prints its records, then
+times K1 alone on its reweighting secondary's codes. Every phase
 raises on a mismatch; nothing is caught, except that a machine without
 matplotlib cannot draw the mutate stage's plots (nor the complex
 concatenation's distance plot, nor the sweep's summary figure: its
@@ -3766,6 +3769,110 @@ def di_twin_calls(n, host_exp="numpy"):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 15: bench_torch.py, the port's benchmark entry point, at bench.py's
+# shapes
+# ---------------------------------------------------------------------------
+
+# the headline line's records, each by one of its keys (bench.py's main())
+BENCH_HEADLINE_KEYS = (
+    "value", "vs_baseline", "production_peak_reserved_bytes",
+    "parity_mode_value", "parity_lbfgs_value", "large_l_value",
+    "mfu_production", "mfu_parity", "parity_duty", "mfu_large_l",
+    "mfu_ai_flop_per_byte", "mi_apc_kernel_ms", "mi_apc_rescore_ms",
+    "de_scan_value", "evcomplex_value", "fold_prep_value", "pipeline_e2e_s",
+    "pipeline_couplings_s", "pipeline_mutate_s", "pipeline_e2e_warm_s",
+    "reweight_512k_kernel_pairs_per_s", "reweight_512k_library_pairs_per_s",
+    "reweight_512k_kernel_hbm_bytes", "reweight_512k_library_hbm_bytes",
+)
+# the secondary lines of --all, in bench.py's order
+BENCH_SECONDARY_METRICS = (
+    "reweighting_row_pairs_per_s", "lbfgs_iteration_ms",
+    "asym_plm_fit_seq_sites_per_s", "asym_lbfgs_iteration_ms",
+)
+# nulls that the records state: the headline's CPU baseline is not
+# compared; the secondaries have no baseline (as in bench.py)
+BENCH_NULL_KEYS = {"vs_measured_cpu", "parity_mode_vs_measured_cpu"}
+BENCH_SECONDARY_NULL_KEYS = {"vs_baseline"}
+
+
+def phase15_check(records, kind):
+    """Every line of bench_torch.py --all present, no record holding an
+    error, every number finite, nulls only where the record says why, the
+    real-family record skipped only while its alignment is absent."""
+    import bench_torch
+
+    metrics = [r.get("metric") for r in records]
+    assert metrics == ["plm_fit_seq_sites_per_s",
+                       *BENCH_SECONDARY_METRICS], metrics
+    head = records[0]
+    missing = [k for k in BENCH_HEADLINE_KEYS if k not in head]
+    assert not missing, missing
+    assert head["mfu_device_kind"] == kind, head.get("mfu_device_kind")
+    assert head["reweight_512k_rows"] == bench_torch.BENCH.reweight_big_n
+    assert head["reweight_512k_counts_equal"] is True
+    if os.path.isfile(bench_torch.REAL_FAMILY_A2M):
+        assert "family_fit_sym_wall_s" in head, sorted(head)
+    else:
+        assert head["family_fit_skipped"] == "reference alignment missing"
+    for r in records:
+        nulls = BENCH_NULL_KEYS if r is head else BENCH_SECONDARY_NULL_KEYS
+        errors = [k for k in r if k.endswith("_error")]
+        assert not errors, errors
+        assert r["device_name"] == kind, r["device_name"]
+        assert r["device_power_limit_w"] > 0, r["device_power_limit_w"]
+        for k, v in r.items():
+            if v is None:
+                assert k in nulls, k
+            elif isinstance(v, (int, float)) and not isinstance(v, bool):
+                assert np.isfinite(v), (k, v)
+        assert r["value"] > 0, r
+
+
+def phase15(dev, kind):
+    """bench_torch.py --all (its main()) in this process on the card, at
+    bench.py's shapes, with every kernel count set to 0 just before and
+    read just after: K1 and K4 must launch. Its stdout's records are
+    checked (phase15_check) and printed one per line. Then, after the
+    count is read, K1 alone on the bench_reweighting record's codes (CUDA
+    events). Returns (seconds of the run, its launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    import bench_torch
+    from evcouplings_torch.ops.weights import (
+        _codes_tensor, _identity_count_threshold, _neighbor_counts,
+    )
+
+    stdout = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc, launches = counted(lambda: bench_torch.main(["--all"]))
+    secs = time.perf_counter() - t
+    assert rc == 0, rc
+    records = [json.loads(line) for line in stdout.getvalue().splitlines()
+               if line.strip()]
+    for r in records:
+        log("phase 15 record:", json.dumps(r))
+    phase15_check(records, kind)
+    log("phase 15 launches of bench_torch.py --all {}".format(
+        json.dumps(launches)))
+    assert launches["K1"] > 0 and launches["K4"] > 0, launches
+
+    shapes = bench_torch.BENCH
+    n = shapes.reweight_n
+    codes = _codes_tensor(np.random.default_rng(0).integers(
+        0, shapes.q, size=(n, shapes.l)).astype(np.int8), dev)
+    min_count = _identity_count_threshold(shapes.l, 0.8)
+    k1_ms = cuda_ms(lambda: _neighbor_counts(codes, min_count), 3)
+    log("phase 15 K1 alone on bench_reweighting's codes (N={}, L={}): "
+        "{:.4f} ms (CUDA events, mean of 3)".format(n, shapes.l, k1_ms))
+    del codes
+    return secs, launches
+
+
 def run_job(config):
     """One pipeline job through execute_wrapped, its kernel launches
     counted from zero, and its final state; every file the final outcfg
@@ -4456,7 +4563,16 @@ def main():
     phase14_launches = phase14(tmp, full, not_produced)
     log("phase 14 took {:.1f} s".format(time.perf_counter() - t14))
 
+    # ---- phase 15: bench_torch.py --all, the port's twin of bench.py, at
+    # bench.py's shapes, its kernel launches counted
+    t15 = time.perf_counter()
+    torch.cuda.empty_cache()
+    bench_secs, phase15_launches = phase15(dev, kind)
+    log("phase 15 bench_torch.py --all took {:.1f} s; phase 15 {:.1f} "
+        "s".format(bench_secs, time.perf_counter() - t15))
+
     for k, row in rows.items():
+        row["bench_launches"] = phase15_launches[k]
         row["examples_launches"] = sum(
             c.get(k, 0) for c in phase14_launches.values())
         row["distributed_launches"] = {

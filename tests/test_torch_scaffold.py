@@ -201,6 +201,7 @@ _FORBIDDEN = re.compile(
 def _port_sources():
     # chip_smoke.py imports tests/examples_fixtures.py, where JAX is absent
     files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "bench_torch.py"),
              os.path.join(REPO, "tests", "examples_fixtures.py")]
     for top in ("evcouplings_torch", "examples_torch"):
         for root, _, names in os.walk(os.path.join(REPO, top)):
