@@ -36,10 +36,11 @@ the parity mode: IEEE float32 products. "high" and "default" are the JAX
 package's definitions of those names, in bf16 limbs
 (_device.precision_limbs): on a CUDA device the float32 operand of each
 one-hot product (the couplings in the logits product, the residual in
-the gradient product) is split into 2 or 1 bf16 limbs, each limb runs
-one cuBLAS pass against the exactly-bf16 one-hot (torch.mm(...,
-out_dtype=float32)), and the passes are summed in float32
-(_limb_operand, _mm). On the CPU these products stay exact float32, as
+the gradient product) is taken in 2 or 1 bf16 limbs against the
+exactly-bf16 one-hot by K5 (kernels/limb_mm.py), one launch per product
+that splits the operand as it loads it, sums every limb pass in one
+float32 accumulator and adds the gradient block's product into dJh in
+place (_limb_operand, _mm). On the CPU these products stay exact float32, as
 XLA-CPU ignores the precision in the JAX package. The per-site softmax
 sums and the weighted sums are float32 reductions at every precision.
 dtype "bfloat16" is the production mode: bf16 operands, with float32
@@ -74,6 +75,9 @@ import torch
 from evcouplings_torch import parallel
 from evcouplings_torch._device import (
     matmul_precision, precision_limbs, resolve_device,
+)
+from evcouplings_torch.kernels.limb_mm import (
+    Split, is_limbs, limb_mm, split_limbs as _split_limbs,
 )
 from evcouplings_torch.kernels.seqdot import sequential_dot, sequential_dots
 from evcouplings_torch.ops.encode import one_hot, pad_rows, unflatten_J
@@ -167,19 +171,6 @@ def _mm_acc(a, b, acc):
     return a.to(acc) @ b.to(acc)
 
 
-def _split_limbs(x, n):
-    """n bfloat16 limbs of a float32 tensor, largest first: the first is x
-    rounded to bf16, each next one what the limbs before it leave of x,
-    rounded to bf16 (that rest is exact in float32). Two limbs hold x to
-    within 2^-17 of it, relative; three hold it exactly."""
-    limbs = [x.to(torch.bfloat16)]
-    rest = x
-    for _ in range(n - 1):
-        rest = rest - limbs[-1]
-        limbs.append(rest.to(torch.bfloat16))
-    return tuple(limbs)
-
-
 def _takes_limbs(dtype, limbs, device):
     """Whether a fit's one-hot products split their float32 operand into
     `limbs` bf16 limbs (precision_limbs of the fit's precision): at
@@ -191,11 +182,10 @@ def _takes_limbs(dtype, limbs, device):
 
 
 def _limb_operand(x, limbs):
-    """The float32 operand x of a one-hot product: the tuple of its bf16
-    limbs where the product takes them (_takes_limbs; _mm runs one pass
-    per limb), else x itself."""
-    return _split_limbs(x, limbs) if _takes_limbs(
-        x.dtype, limbs, x.device) else x
+    """The float32 operand x of a one-hot product: x to be taken in
+    `limbs` bf16 limbs (a Split, which the product splits as it loads
+    it) where the product takes them (_takes_limbs), else x itself."""
+    return Split(x, limbs) if _takes_limbs(x.dtype, limbs, x.device) else x
 
 
 def _exact_dtype(dtype, limbs, device):
@@ -205,27 +195,26 @@ def _exact_dtype(dtype, limbs, device):
     return torch.bfloat16 if _takes_limbs(dtype, limbs, device) else dtype
 
 
-def _mm(a, b, out):
-    """a @ b with the output in `out` (_mm_acc). Where one operand is a
-    tuple of bf16 limbs (_limb_operand), the other is exactly bf16 (a
-    one-hot, cast to bf16 if it is not) and the product is one
-    torch.mm(..., out_dtype=float32) pass per limb, largest limb first,
-    each pass added to the sum of those before in float32; the output is
+def _mm(a, b, out, into=None):
+    """a @ b with the output in `out` (_mm_acc); with `into`, the product
+    is added into that tensor in place and it is returned. Where one
+    operand is a limb side (a Split from _limb_operand, or a tuple of
+    stored bf16 limbs), the other is exactly bf16 (a one-hot, cast to
+    bf16 if it is not) and the product is kernels.limb_mm: on a CUDA
+    device one K5 launch, every limb pass in one float32 accumulator per
+    output element, added into `into` in its epilogue; the output is
     then float32."""
-    if not (isinstance(a, tuple) or isinstance(b, tuple)):
-        return _mm_acc(a, b, out)
-    a = a if isinstance(a, tuple) else (a.to(torch.bfloat16),)
-    b = b if isinstance(b, tuple) else (b.to(torch.bfloat16),)
-    total = None
-    for x in a:
-        for y in b:
-            p = _mm_acc(x, y, torch.float32)
-            total = p if total is None else total.add_(p)
-    return total
+    if is_limbs(a) or is_limbs(b):
+        a = a if is_limbs(a) else a.to(torch.bfloat16)
+        b = b if is_limbs(b) else b.to(torch.bfloat16)
+        return limb_mm(a, b, into)
+    p = _mm_acc(a, b, out)
+    return p if into is None else into.add_(p)
 
 
 def _transpose(x):
-    """x.T, or the transposes of a tuple of limbs."""
+    """x.T (of a tensor or a Split), or the transposes of a tuple of
+    limbs."""
     return tuple(t.T for t in x) if isinstance(x, tuple) else x.T
 
 
@@ -302,7 +291,7 @@ def _build_j_aug(params, L, q, dtype, lq_aug, symmetric=False):
 def _block_nll_residual(J_aug, oh_aug, c, w, L, q, acc):
     """(block NLL contribution, residual r) for one row block.
 
-    J_aug: the augmented couplings, or their limbs (_limb_operand);
+    J_aug: the augmented couplings, or a Split of them (_limb_operand);
     oh_aug: (B, Lq_aug) augmented one-hot of codes c (bf16 beside limbs);
     w already in the compute dtype. The per-site softmax sums are
     reductions over each site's q lanes (the JAX package takes them as
@@ -356,7 +345,7 @@ def _local_vg_carried(J_aug, codes, weights, L, q, block_size, acc,
         oh_aug = build_augmented_onehot(c, q, oh_dtype)
         nll_b, r = _block_nll_residual(J_op, oh_aug, c, w, L, q, acc)
         nll = nll + nll_b
-        dJh += _mm(_limb_operand(r.T, limbs), oh_aug, acc)
+        _mm(_limb_operand(r.T, limbs), oh_aug, acc, into=dJh)
     return nll, dJh
 
 
@@ -427,10 +416,10 @@ _PEAK_ARRAYS = {   # (fit, solver): (arrays, arrays per history pair)
 # residual and its factors)
 _BLOCK_TEMPORARIES = 5
 # what the limb route ("high"/"default" with float32 compute on a CUDA
-# device) adds: (Lq, Lq_aug) arrays, the couplings' bf16 limbs and the
-# float32 rest of their split, and (block, width) temporaries, the
-# residual's limbs and the rest of its split
-_LIMB_ARRAYS = 2
+# device) adds: K5 splits its float32 operand as it loads it and adds the
+# carried gradient into dJh in place, so nothing in the carried layout;
+# in the two-phase layouts, (block, width) temporaries of the residual's
+# split into the store's limbs (the limbs and the float32 rest)
 _LIMB_TEMPORARIES = 2
 # the caching allocator's reserve over what a fit allocates: 1.01-1.37 in
 # chip_smoke.py --peak-memory, the most where differently sized row
@@ -447,9 +436,9 @@ def estimate_fit_hbm_bytes(n, l, q, cfg, parametrization="symmetric",
     ((l_loc q, Lq_aug) in the asymmetric fit) beside the rows' working
     set of the gradient layout: the two-phase layout's resident one-hot
     and residuals plus a block's temporaries, or the carried layout's
-    block temporaries; then the codes, the limb route's arrays
-    (_LIMB_ARRAYS, counted wherever a float32 fit runs at "high" or
-    "default"), and 35% for the allocator. The counts are the port's,
+    block temporaries; then the codes, the limb route's temporaries
+    (_LIMB_TEMPORARIES, counted wherever a float32 fit runs at "high" or
+    "default" in a two-phase layout), and 35% for the allocator. The counts are the port's,
     read off the card's allocator: they exceed the JAX package's (an eager step keeps its inputs while it builds its
     outputs, where XLA reuses buffers). On an NVIDIA H100 80GB HBM3 at
     700 W, `python3 chip_smoke.py --peak-memory` found every fit route's
@@ -473,7 +462,8 @@ def estimate_fit_hbm_bytes(n, l, q, cfg, parametrization="symmetric",
         l_loc = -(-l // max(1, n_model_shards))
         key = ("asymmetric", cfg.solver)
         d = l_loc * q * lq_aug
-        if cfg.grad_layout == "two_phase":
+        two_phase = cfg.grad_layout == "two_phase"
+        if two_phase:
             rows = n_loc * (lq + l_loc * q) * comp
         else:
             rows = _BLOCK_TEMPORARIES * block * lq_aug * comp
@@ -484,7 +474,8 @@ def estimate_fit_hbm_bytes(n, l, q, cfg, parametrization="symmetric",
         d = lq * lq_aug
         layout = _resolve_grad_layout(cfg, _compute_dtype(cfg.dtype),
                                       n_loc, lq_aug)
-        if layout == "two_phase":
+        two_phase = layout == "two_phase"
+        if two_phase:
             rows = (n_loc * (lq_aug + lq)
                     + _BLOCK_TEMPORARIES * block * lq) * comp
         else:
@@ -492,9 +483,9 @@ def estimate_fit_hbm_bytes(n, l, q, cfg, parametrization="symmetric",
 
     base, per_pair = _PEAK_ARRAYS[key]
     arrays = base + per_pair * cfg.memory_size
-    if cfg.dtype == "float32" and precision_limbs(cfg.precision):
-        arrays += _LIMB_ARRAYS
-        rows += _LIMB_TEMPORARIES * block * lq_aug * comp
+    if (cfg.dtype == "float32" and precision_limbs(cfg.precision)
+            and two_phase):
+        rows += _LIMB_TEMPORARIES * block * lq * comp
     return int(_ALLOCATOR_SLACK * (arrays * d * master + rows + codes_bytes))
 
 

@@ -425,3 +425,95 @@ def test_card_lbfgs_takes_k4_only_in_parity(cuda, precision, takes_k4):
                             conv_tol=0.0, precision=precision), device=cuda)
     assert np.isfinite(res.J_ij).all() and np.isfinite(res.h_i).all()
     assert (seqdot.sequential_dots.launches > before) == takes_k4
+
+
+def _k5_case(cuda, form, L, B, seed):
+    """(limb side maker, exact side, out or None) of one K5 product at L
+    sites: "grad" dJh += split(r^T) @ [onehot | 1 | 0], "stored" the
+    two-phase product from bf16 limbs, "logits" [onehot | 1 | 0] @
+    split(J_aug), "logits_t" onehot @ split(J^T), "sites_grad" the
+    per-site fit's dJ += split(r^T) @ onehot (unpadded one-hot)."""
+    from evcouplings_torch.kernels.limb_mm import Split, split_limbs
+    from evcouplings_torch.ops.plm import _augmented_width
+
+    rng = np.random.default_rng(seed)
+    q = 21
+    lq = L * q
+    width = {"grad": _augmented_width(lq), "stored": _augmented_width(lq),
+             "logits": _augmented_width(lq)}.get(form, lq)
+    codes = rng.integers(-1, q, size=(B, L))
+    oh = np.zeros((B, width), np.float32)
+    rows, sites = np.nonzero(codes >= 0)
+    oh[rows, sites * q + codes[rows, sites]] = 1.0
+    if width > lq:
+        oh[:, lq] = 1.0
+    oh = torch.as_tensor(oh, device=cuda).to(torch.bfloat16)
+
+    def f32(shape, scale):
+        x = rng.normal(size=shape) * scale * np.exp2(rng.integers(-6, 6,
+                                                                  shape))
+        return torch.as_tensor(x.astype(np.float32), device=cuda)
+
+    if form in ("grad", "sites_grad"):
+        r = f32((B, lq), 0.1)
+        return (lambda n: Split(r.T, n)), oh, f32((lq, width), 1.0)
+    if form == "stored":
+        r = f32((B, lq), 0.1)
+        return (lambda n: tuple(t.T for t in split_limbs(r, n))), oh, None
+    if form == "logits":
+        J = f32((width, lq), 0.05)
+        return (lambda n: Split(J, n)), oh, None
+    J = f32((lq, lq), 0.05)
+    return (lambda n: Split(J.T, n)), oh, None
+
+
+K5_FORMS = ("grad", "stored", "logits", "logits_t", "sites_grad")
+
+
+@pytest.mark.parametrize("L,B", [(160, 512), (7, 100)])
+@pytest.mark.parametrize("limbs", [1, 2])
+@pytest.mark.parametrize("form", K5_FORMS)
+def test_k5_matches_plain_and_is_bitwise_repeatable(cuda, form, limbs, L,
+                                                    B):
+    """K5 against its plain version (the route before it: one
+    torch.mm(..., out_dtype=float32) pass per limb, the passes added) at
+    the main path's widths (L=160: Lq 3360, Lq_aug 3456, a 512-row block)
+    and a ragged one (L=7, 100 rows; the per-site one-hot's rows are not
+    16-byte aligned): within 1e-5 of the plain result's largest |value|,
+    the same bits on a second call, one launch per product."""
+    from evcouplings_torch.kernels import limb_mm as k_limb
+
+    make, exact, out = _k5_case(cuda, form, L, B, seed=limbs + L)
+    limb = make(limbs)
+
+    def run(fn):
+        o = None if out is None else out.clone()
+        return fn(exact, limb, o) if form.startswith("logits") else fn(
+            limb, exact, o)
+
+    before = k_limb.limb_mm.launches
+    got = run(k_limb.limb_mm)
+    again = run(k_limb.limb_mm)
+    assert k_limb.limb_mm.launches == before + 2
+    want = run(k_limb.limb_mm_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+def test_k5_refuses_layouts_it_does_not_take(cuda):
+    """On CUDA tensors the wrapper launches K5 or raises: no fallback to
+    the plain version, and no launch counted."""
+    from evcouplings_torch.kernels import limb_mm as k_limb
+
+    r = torch.ones((16, 27), device=cuda)
+    oh = torch.ones((16, 32), dtype=torch.bfloat16, device=cuda)
+    before = k_limb.limb_mm.launches
+    with pytest.raises(ValueError):
+        k_limb.limb_mm(k_limb.Split(r.T.contiguous(), 2), oh)
+    with pytest.raises(ValueError):
+        k_limb.limb_mm(k_limb.Split(r.T, 3), oh)
+    with pytest.raises(ValueError):
+        k_limb.limb_mm(k_limb.Split(r.T, 2), oh.float())
+    assert k_limb.limb_mm.launches == before

@@ -6,8 +6,8 @@ structured names against the unstructured ones, and the builders at
 "high" and "default" against the JAX twin on the host, where both
 packages form exact float32 products. The card's limb route is also run
 here by letting the CPU take it (each pass's bf16 products are exact in
-float32 and the passes accumulate in float32, as cuBLAS does on the
-card); the card's own cases are in tests/test_torch_gpu.py.
+float32 and the passes accumulate in float32, as K5 does on the card,
+kernels/limb_mm.py); the card's own cases are in tests/test_torch_gpu.py.
 """
 
 import jax.numpy as jnp
