@@ -3959,9 +3959,10 @@ def limb_cases(rng, dev, L, B, rows, sites_rows):
     (ops/plm.py, the carried layout), "stored" the two-phase layout's
     product over `rows` rows from the residual store's bf16 limbs,
     "logits" [onehot | 1 | 0] @ split(J_aug), "logits_t" onehot @
-    split(J^T) (the loss builder and the per-site fit), "sites_grad" dJ +=
-    split(r^T) @ onehot with the per-site fit's unpadded one-hot
-    (ops/plm_sites.py) over `sites_rows` rows. Returns {name: (limb side
+    split(J^T) (the loss builder and the per-site fit) and "sites_grad"
+    dJ += split(r^T) @ onehot with the per-site fit's unpadded one-hot
+    (ops/plm_sites.py), both over `sites_rows` rows, the per-site fit's
+    block. Returns {name: (limb side
     maker (limbs -> operand), exact side, out or None, float64 value of
     the limb side as the product takes it, exact side in float64, depth)}:
     the product is limb side @ exact side, or exact side @ limb side for
@@ -4005,11 +4006,10 @@ def limb_cases(rng, dev, L, B, rows, sites_rows):
     cases["logits"] = (lambda n: Split(J, n), oh, None, J.double(),
                        oh.double(), lq_aug)
     Jt = f32((lq, lq), 0.05)
-    oh_t = onehot(B, lq)
-    cases["logits_t"] = (lambda n: Split(Jt.T, n), oh_t, None,
-                         Jt.T.double(), oh_t.double(), lq)
-    r_s = f32((sites_rows, lq), 0.1)
     oh_s = onehot(sites_rows, lq)
+    cases["logits_t"] = (lambda n: Split(Jt.T, n), oh_s, None,
+                         Jt.T.double(), oh_s.double(), lq)
+    r_s = f32((sites_rows, lq), 0.1)
     cases["sites_grad"] = (lambda n: Split(r_s.T, n), oh_s,
                            f32((lq, lq), 1.0), r_s.T.double(),
                            oh_s.double(), sites_rows)
@@ -4023,26 +4023,6 @@ def limb_product(k, name, limb, exact, out):
     if name.startswith("logits"):
         return k(exact, limb, out)
     return k(limb, exact, out)
-
-
-def limb_route(name, limb, exact, out):
-    """The route the card took for a limb product before K5 (the library
-    yardstick): the float32 operand split into bf16 limbs, one
-    torch.mm(..., out_dtype=float32) pass per limb, the passes added, then
-    added into the gradient."""
-    import torch
-
-    from evcouplings_torch.kernels.limb_mm import Split, split_limbs
-
-    parts = (split_limbs(limb.x, limb.n) if isinstance(limb, Split)
-             else limb)
-    total = None
-    for x in parts:
-        p = (torch.mm(exact, x, out_dtype=torch.float32)
-             if name.startswith("logits")
-             else torch.mm(x, exact, out_dtype=torch.float32))
-        total = p if total is None else total.add_(p)
-    return total if out is None else out.add_(total)
 
 
 def limb_route_parts(limb, exact, out):
@@ -4080,13 +4060,21 @@ def limb_route_parts(limb, exact, out):
 
 def phase3c_limb_mm(rng, dev, shapes=(("main", 160, 512, 512, 2048),
                                         ("ragged", 7, 100, 300, 100),
+                                        ("wide ragged", 127, 2048, 2048,
+                                         2048),
                                         ("deep", 160, 512, 16384, 2048))):
     """K5 against its plain version on the card: every form (limb_cases)
     at limbs 1 and 2, at the main path's shapes (N=16384, L=160: a block
     of 512 rows, Lq 3360, Lq_aug 3456; the per-site fit's 2048-row
     block), a ragged one (L=7: Lq 147, Lq_aug 256, 100-row blocks, 300
-    rows) and the per-site fit's unaligned one-hot (L=7, rows of 294
-    bytes). Each K5 result within K5_PLAIN_REL of the plain version's
+    rows; the per-site fit's one-hot rows of 294 bytes, not 16-byte
+    aligned) and a wide ragged one (L=127: Lq 2667, 2048-row blocks, rows
+    of r and of the per-site one-hot not 16-byte aligned) whose grids are
+    wide enough for two warpgroups per block in every form. Together they
+    run every kernel instantiation (form, limbs, warpgroups per block:
+    kernels/limb_mm.instantiation), which is asserted, so each one the
+    main path can pick is held to its plain version here. Each K5 result
+    within K5_PLAIN_REL of the plain version's
     largest |value|, within the limbs' bound of float64 elementwise (limb
     split 2^-8 for one limb, 2^-17 for two, of sum |a||b|, plus float32
     accumulation over depth + limbs terms at twice the IEEE unit, as the
@@ -4095,16 +4083,19 @@ def phase3c_limb_mm(rng, dev, shapes=(("main", 160, 512, 512, 2048),
     16384 rows: two float32 sums of 16384 terms in other orders, so K5
     and the plain version are each held to that float64 bound and to
     each other within twice it, not to K5_PLAIN_REL. At the main and deep
-    shapes each form is timed (CUDA events) beside the plain version and
-    the route before K5 (limb_route). Returns K5's row of the kernels
-    line: the gradient form at two limbs ("high"), with every timed
-    form's numbers under "forms"."""
+    shapes each form is timed (CUDA events) beside the plain version,
+    which is the route the card took before K5 (a split, one
+    torch.mm(..., out_dtype=float32) pass per limb, the adds) and so also
+    its library yardstick: library_ms is that same measurement. Returns
+    K5's row of the kernels line: the gradient form at two limbs
+    ("high"), with every timed form's numbers under "forms"."""
     import torch
 
     from evcouplings_torch.kernels import limb_mm as k_limb
 
     forms = {}
     worst = {"plain_rel": 0.0, "f64_rel": {1: 0.0, 2: 0.0}}
+    covered = {}
     for label, L, B, rows, sites_rows in shapes:
         cases = limb_cases(rng, dev, L, B, rows, sites_rows)
         for name, (make, exact, out, a64, b64, depth) in cases.items():
@@ -4124,6 +4115,10 @@ def phase3c_limb_mm(rng, dev, shapes=(("main", 160, 512, 512, 2048),
                                     out)
                 torch.cuda.synchronize()
                 assert torch.equal(got, again), (label, name, limbs)
+                covered.setdefault(
+                    k_limb.instantiation(*((exact, limb, got) if logits
+                                           else (limb, exact, got))),
+                    "{} {}".format(label, name))
                 scale = float(want.abs().max())
                 err = float((got - want).abs().max())
                 plain_rel = err / scale
@@ -4144,13 +4139,15 @@ def phase3c_limb_mm(rng, dev, shapes=(("main", 160, 512, 512, 2048),
                                                        plain_rel)
                 f64_rel = float((got.double() - want64).abs().max()
                                 / want64.abs().max())
+                plain_f64_rel = float((want.double() - want64).abs().max()
+                                      / want64.abs().max())
                 if label != "deep":
                     worst["plain_rel"] = max(worst["plain_rel"], plain_rel)
                 worst["f64_rel"][limbs] = max(worst["f64_rel"][limbs],
                                               f64_rel)
                 entry = {"max_abs_err": err, "plain_rel": plain_rel,
-                         "f64_rel": f64_rel}
-                if label != "ragged":
+                         "f64_rel": f64_rel, "plain_f64_rel": plain_f64_rel}
+                if label in ("main", "deep"):
                     m, n = got.shape
                     a_bytes = (4 if not isinstance(limb, tuple)
                                else 2 * limbs) * a64.numel()
@@ -4167,12 +4164,11 @@ def phase3c_limb_mm(rng, dev, shapes=(("main", 160, 512, 512, 2048),
                         return (fn(exact, limb, None) if logits
                                 else fn(limb, exact, scratch))
 
+                    plain_ms = cuda_ms(lambda: call(k_limb.limb_mm_plain),
+                                       reps)
                     entry.update(
                         ms=cuda_ms(lambda: call(k_limb.limb_mm), reps),
-                        plain_ms=cuda_ms(
-                            lambda: call(k_limb.limb_mm_plain), reps),
-                        library_ms=cuda_ms(lambda: limb_route(
-                            name, limb, exact, scratch), reps),
+                        plain_ms=plain_ms, library_ms=plain_ms,
                         bound_ms=max(bytes_ms, ops_ms),
                         bound_by="bytes" if bytes_ms >= ops_ms
                         else "operations", shape=[m, n, depth])
@@ -4187,6 +4183,12 @@ def phase3c_limb_mm(rng, dev, shapes=(("main", 160, 512, 512, 2048),
         torch.cuda.empty_cache()
     for key, e in forms.items():
         log("phase 3c K5 {}: {}".format(key, json.dumps(e)))
+    every = {(form, limbs, wg) for form in range(4) for limbs in (1, 2)
+             for wg in (1, 2)}
+    log("phase 3c K5 instantiations (form, limbs, warpgroups) and the "
+        "first case that ran each: {}".format(
+            {str(k): v for k, v in sorted(covered.items())}))
+    assert set(covered) == every, sorted(every - set(covered))
     log("phase 3c K5: every form within {} of its plain version (worst "
         "{:.3e}; the deep two-phase product both within the float64 "
         "bound), within the limbs' bound of float64 (worst relative to "
@@ -4206,7 +4208,7 @@ def phase3c_limb_mm(rng, dev, shapes=(("main", 160, 512, 512, 2048),
         max_plain_rel=worst["plain_rel"],
         max_f64_rel={str(k): v for k, v in worst["f64_rel"].items()},
         forms={k: v for k, v in forms.items()
-               if not k.startswith("ragged")})
+               if k.startswith(("main", "deep"))})
 
 
 def run_job(config):

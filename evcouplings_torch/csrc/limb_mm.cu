@@ -70,7 +70,8 @@
 // Where it stands (chip_smoke.py phase 3c, NVIDIA H100 80GB HBM3, 700 W):
 // the gradient form above took 0.130 ms at "high" against 0.183 ms for
 // the route it replaced and 0.031 ms of bound; the logits form 0.149 ms
-// (bound 0.024), at one limb as at two. Its time follows the bytes its
+// (bound 0.024), at one limb as at two; end to end it is slower than that
+// route at both "high" and "default". Its time follows the bytes its
 // tiles pull from L2 through per-thread cp.async, not its operations: a
 // design with TMA copies from a producer warp, and for the logits forms
 // one-hot tiles multicast across a cluster, is the next step.
@@ -532,14 +533,20 @@ cudaError_t launch(const Args& p, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The warpgroups per block (kWG) of an M x N output on `device`: 2 where
+// the grid of 128-row blocks has at least two waves, else 1.
+int warpgroups(int M, int N, int device) {
+  const long long wide = static_cast<long long>((M + 127) / 128) *
+                         ((N + kBN - 1) / kBN);
+  return wide >= 2LL * device_sms(device) ? 2 : 1;
+}
+
 template <int kForm, int kNL>
 cudaError_t launch_tiles(const Args& p, cudaStream_t stream) {
   int device = -1;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  const long long wide = static_cast<long long>((p.M + 127) / 128) *
-                         ((p.N + kBN - 1) / kBN);
-  return wide >= 2LL * device_sms(device)
+  return warpgroups(p.M, p.N, device) == 2
              ? launch<kForm, kNL, 2>(p, device, stream)
              : launch<kForm, kNL, 1>(p, device, stream);
 }
@@ -597,6 +604,18 @@ int evc_limb_mm(int form, int limbs, const void* a0, const void* a1,
     default:
       return static_cast<int>(launch_limbs<kLogitsMK>(p, limbs, s));
   }
+}
+
+// The warpgroups per block (1 or 2) that evc_limb_mm launches for an
+// M x N output (its M and N) on the current device, into *out: with the
+// form and limbs, the kernel instantiation it runs. Returns the
+// cudaError_t of reading the device.
+int evc_limb_mm_warpgroups(int M, int N, int* out) {
+  int device = -1;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *out = warpgroups(M, N, device);
+  return 0;
 }
 
 const char* evc_error_string(int err) {

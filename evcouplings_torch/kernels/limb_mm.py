@@ -49,6 +49,9 @@ _SYMBOLS = {
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ],
+    "evc_limb_mm_warpgroups": [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+    ],
 }
 
 
@@ -235,6 +238,19 @@ def kernel_args(a, b, out):
     a_vec = int(all(_aligned(s, lda) for s in S))
     return (form, limbs, S[0], S[1] if len(S) > 1 else None, e, out, kM, kN,
             K, lda, ldb, ldc, a_vec, _aligned(e, ldb))
+
+
+def instantiation(a, b, out):
+    """(form, limbs, warpgroups per block): the kernel instantiation that
+    a K5 launch of this product (CUDA operands, `out` the float32 output)
+    runs on the current device."""
+    (form, limbs, _a0, _a1, _e, _c, M, N, *_) = kernel_args(a, b, out)
+    lib = _build.load(SOURCE, _SYMBOLS)
+    wg = ctypes.c_int(0)
+    with torch.cuda.device(out.device):
+        err = lib.evc_limb_mm_warpgroups(M, N, ctypes.byref(wg))
+    _build.check_launch(lib, err, "evc_limb_mm_warpgroups")
+    return form, limbs, wg.value
 
 
 def _launch(a, b, out, accumulate):

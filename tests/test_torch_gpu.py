@@ -468,19 +468,23 @@ def _k5_case(cuda, form, L, B, seed):
 
 
 K5_FORMS = ("grad", "stored", "logits", "logits_t", "sites_grad")
+# (L, B): the main path's widths with the carried layout's 512-row block
+# and the per-site fit's 2048-row block, and a ragged one
+K5_SHAPES = [(160, 512), (7, 100), (160, 2048)]
 
 
-@pytest.mark.parametrize("L,B", [(160, 512), (7, 100)])
+@pytest.mark.parametrize("L,B", K5_SHAPES)
 @pytest.mark.parametrize("limbs", [1, 2])
 @pytest.mark.parametrize("form", K5_FORMS)
 def test_k5_matches_plain_and_is_bitwise_repeatable(cuda, form, limbs, L,
                                                     B):
     """K5 against its plain version (the route before it: one
     torch.mm(..., out_dtype=float32) pass per limb, the passes added) at
-    the main path's widths (L=160: Lq 3360, Lq_aug 3456, a 512-row block)
-    and a ragged one (L=7, 100 rows; the per-site one-hot's rows are not
-    16-byte aligned): within 1e-5 of the plain result's largest |value|,
-    the same bits on a second call, one launch per product."""
+    the main path's widths (L=160: Lq 3360, Lq_aug 3456, 512- and
+    2048-row blocks) and a ragged one (L=7, 100 rows; the per-site
+    one-hot's rows are not 16-byte aligned): within 1e-5 of the plain
+    result's largest |value|, the same bits on a second call, one launch
+    per product."""
     from evcouplings_torch.kernels import limb_mm as k_limb
 
     make, exact, out = _k5_case(cuda, form, L, B, seed=limbs + L)
@@ -500,6 +504,27 @@ def test_k5_matches_plain_and_is_bitwise_repeatable(cuda, form, limbs, L,
     assert torch.equal(got, again)
     assert float((got - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
+
+
+def test_k5_cases_run_every_instantiation(cuda):
+    """The products of test_k5_matches_plain_and_is_bitwise_repeatable
+    run every kernel instantiation (form, limbs, warpgroups per block)
+    that a launch can pick, so each one is held to the plain version."""
+    from evcouplings_torch.kernels import limb_mm as k_limb
+
+    seen = set()
+    for form in K5_FORMS:
+        for L, B in K5_SHAPES:
+            for limbs in (1, 2):
+                make, exact, out = _k5_case(cuda, form, L, B, seed=0)
+                limb = make(limbs)
+                args = ((exact, limb) if form.startswith("logits")
+                        else (limb, exact))
+                if out is None:
+                    out = k_limb.limb_mm_plain(*args)
+                seen.add(k_limb.instantiation(*args, out))
+    assert seen == {(form, limbs, wg) for form in range(4)
+                    for limbs in (1, 2) for wg in (1, 2)}
 
 
 def test_k5_refuses_layouts_it_does_not_take(cuda):
