@@ -539,8 +539,8 @@ def profile_device_time(what, fn, host_ops=True):
         activities.append(ProfilerActivity.CPU)
     with profile(activities=activities) as prof:
         _, wall = timed(fn)
-    # user annotations (a fit's plm_step_chunk ranges) enclose kernels
-    # already counted: leave them out of the busy sum
+    # user annotations (the port's spans: fit, plm.value_grad, ...) enclose
+    # kernels already counted: leave them out of the busy sum
     kern = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")

@@ -18,6 +18,7 @@ plmc conventions reproduced:
 - raw EC file: `i A_i j A_j fn cn` rows for i < j in row-major order
 """
 
+import functools
 from collections import namedtuple
 
 import numpy as np
@@ -41,6 +42,7 @@ from evcouplings_torch.ops.weights import num_cluster_members
 from evcouplings_torch.utils.system import (
     ResourceError, create_prefix_folders, verify_resources,
 )
+from evcouplings_torch.utils.tracing import span
 
 # result contract of plmc's wrapper (PlmcResult)
 PlmResult = namedtuple(
@@ -161,6 +163,19 @@ def _symmetric_block_size(compute_dtype, n_fit, n_data_shards=1):
     return 512 * max(d for d in range(1, 17) if k % d == 0)
 
 
+def _stage_span(run):
+    """run inside the span "stage": one per family, the root of its
+    reading, reweighting, fit, scoring and writing spans."""
+
+    @functools.wraps(run)
+    def spanned(*args, **kwargs):
+        with span("stage"):
+            return run(*args, **kwargs)
+
+    return spanned
+
+
+@_stage_span
 def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
             alphabet=None, theta=None, scale=None, ignore_gaps=False,
             iterations=None, lambda_h=None, lambda_J=None, lambda_g=None,
@@ -210,12 +225,6 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
     del cpu, binary
     device = resolve_device(
         mesh.device if device is None and mesh is not None else device)
-    verify_resources("Alignment file does not exist", alignment)
-
-    create_prefix_folders(couplings_file)
-    if param_file is not None:
-        create_prefix_folders(param_file)
-
     alphabet = ALPHABET_PROTEIN if alphabet is None else alphabet
     theta = 0.8 if theta is None else theta
     scale = 1.0 if scale is None else scale
@@ -224,30 +233,37 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
     lambda_J = 0.01 if lambda_J is None else lambda_J
     lambda_g = 0.0 if lambda_g is None else lambda_g
 
-    prep = prepare_alignment(alignment, focus_seq=focus_seq,
-                             alphabet=alphabet)
-    codes = prep["codes"]
-    N, L = codes.shape
-    q = len(alphabet)
-    if N == 0:
-        raise ResourceError(
-            "No valid sequences to fit: every row of {} contains symbols "
-            "outside the alphabet in the selected columns. A2M/A3M "
-            "alignments with lowercase insert columns need focus mode "
-            "(focus_seq=...) to select the uppercase match "
-            "columns.".format(alignment))
+    with span("stage.read"):
+        verify_resources("Alignment file does not exist", alignment)
+        create_prefix_folders(couplings_file)
+        if param_file is not None:
+            create_prefix_folders(param_file)
+
+        prep = prepare_alignment(alignment, focus_seq=focus_seq,
+                                 alphabet=alphabet)
+        codes = prep["codes"]
+        N, L = codes.shape
+        q = len(alphabet)
+        if N == 0:
+            raise ResourceError(
+                "No valid sequences to fit: every row of {} contains "
+                "symbols outside the alphabet in the selected columns. "
+                "A2M/A3M alignments with lowercase insert columns need "
+                "focus mode (focus_seq=...) to select the uppercase match "
+                "columns.".format(alignment))
 
     # O(N^2 L) reweighting (gaps participate in identity): K1 on the card,
     # split over the "data" ranks on a mesh
-    codes_d = device_codes(codes, device=device)
-    if mesh is None:
-        cluster_sizes = num_cluster_members(codes_d, theta)
-    else:
-        cluster_sizes = parallel.num_cluster_members_sharded(
-            codes_d, theta, mesh)
-    cluster_sizes = cluster_sizes.cpu().numpy()
-    weights = scale / cluster_sizes
-    n_eff = float(weights.sum())
+    with span("stage.reweight"):
+        codes_d = device_codes(codes, device=device)
+        if mesh is None:
+            cluster_sizes = num_cluster_members(codes_d, theta)
+        else:
+            cluster_sizes = parallel.num_cluster_members_sharded(
+                codes_d, theta, mesh)
+        cluster_sizes = cluster_sizes.cpu().numpy()
+        weights = scale / cluster_sizes
+        n_eff = float(weights.sum())
 
     # with ignore_gaps, gap positions are missing data (code -1)
     fit_codes = codes
@@ -377,50 +393,52 @@ def run_plm(alignment, couplings_file, param_file=None, focus_seq=None,
         checkpoint_every=checkpoint_every, device=device,
     )
 
-    # drop the inert bucket-padding sites before scoring/persisting
-    fit_J_ij = fit.J_ij[:L, :L]
-    fit_h_i = fit.h_i[:L]
+    with span("stage.score"):
+        # drop the inert bucket-padding sites before scoring/persisting
+        fit_J_ij = fit.J_ij[:L, :L]
+        fit_h_i = fit.h_i[:L]
 
-    # weighted frequencies (no pseudocount) for the .model file
-    f_i = frequencies(codes_d, weights, q)
-    f_ij = pair_frequencies(codes_d, weights, q, f_i)
+        # weighted frequencies (no pseudocount) for the .model file
+        f_i = frequencies(codes_d, weights, q)
+        f_ij = pair_frequencies(codes_d, weights, q, f_i)
 
-    fn = _scores.fn_scores(fit_J_ij)
-    cn = _scores.apc(fn)
+        fn = _scores.fn_scores(fit_J_ij)
+        cn = _scores.apc(fn)
 
-    # weight vector in plmc layout: all sequences in original order,
-    # invalid rows with weight 0
-    all_weights = np.zeros(prep["num_total_seqs"])
-    all_weights[prep["valid_index"]] = weights
+        # weight vector in plmc layout: all sequences in original order,
+        # invalid rows with weight 0
+        all_weights = np.zeros(prep["num_total_seqs"])
+        all_weights[prep["valid_index"]] = weights
 
-    model = CouplingsModel.from_params(
-        J_ij=fit_J_ij,
-        h_i=fit_h_i,
-        f_i=f_i,
-        f_ij=f_ij,
-        alphabet=alphabet,
-        target_seq=prep["target_seq"],
-        index_list=prep["index_list"],
-        weights=all_weights,
-        theta=float(theta),
-        lambda_h=float(lambda_h),
-        lambda_J=float(lambda_J),
-        lambda_group=float(lambda_g),
-        N_valid=prep["num_valid_seqs"],
-        N_invalid=prep["num_total_seqs"] - prep["num_valid_seqs"],
-        num_iter=fit.num_iter,
-        N_eff=n_eff,
-    )
-    # one writer on a mesh (the ranks hold the same result); the others
-    # return once the files are there
-    if mesh is None or mesh.is_writer:
-        if param_file is not None:
-            model.to_file(param_file, precision="float32",
-                          file_format="plmc_v2")
-        write_raw_ec_file(
-            couplings_file, prep["index_list"], prep["target_seq"], fn, cn)
-    if mesh is not None:
-        parallel.barrier(mesh)
+        model = CouplingsModel.from_params(
+            J_ij=fit_J_ij,
+            h_i=fit_h_i,
+            f_i=f_i,
+            f_ij=f_ij,
+            alphabet=alphabet,
+            target_seq=prep["target_seq"],
+            index_list=prep["index_list"],
+            weights=all_weights,
+            theta=float(theta),
+            lambda_h=float(lambda_h),
+            lambda_J=float(lambda_J),
+            lambda_group=float(lambda_g),
+            N_valid=prep["num_valid_seqs"],
+            N_invalid=prep["num_total_seqs"] - prep["num_valid_seqs"],
+            num_iter=fit.num_iter,
+            N_eff=n_eff,
+        )
+    with span("stage.write"):
+        # one writer on a mesh (the ranks hold the same result); the others
+        # return once the files are there
+        if mesh is None or mesh.is_writer:
+            if param_file is not None:
+                model.to_file(param_file, precision="float32",
+                              file_format="plmc_v2")
+            write_raw_ec_file(couplings_file, prep["index_list"],
+                              prep["target_seq"], fn, cn)
+        if mesh is not None:
+            parallel.barrier(mesh)
 
     if fit.converged:
         status = "converged"

@@ -14,10 +14,13 @@ plain Python loops over tensors. Scalars stay 0-d tensors of the
 vector's dtype, so every comparison is made in the same arithmetic as
 the JAX engine; the host reads one small vector of flags per linesearch
 trial. Empty history slots are skipped rather than multiplied by
-rho == 0, which is bitwise the same.
+rho == 0, which is bitwise the same. Every read that waits for the device
+goes through _fit_sync.
 """
 
 import torch
+
+from evcouplings_torch.utils.tracing import span
 
 # libLBFGS-compatible linesearch constants (strong Wolfe), pinned to the
 # values of the JAX engine and the f64 oracle of the tests
@@ -30,6 +33,13 @@ _SHRINK = 0.5       # trial-step backtracking factor
 _MIN_CURVATURE = 1e-10
 # libLBFGS's max_linesearch default
 _MAX_LS = 40
+
+
+def _fit_sync(site, t):
+    """t.tolist(): a blocking device-to-host read of a fit's loop, inside
+    the span fit.sync.<site> (the host's wait on the device)."""
+    with span("fit.sync." + site):
+        return t.tolist()
 
 
 def init_lbfgs_state(x, value, grad, m=5):
@@ -119,7 +129,7 @@ def make_lbfgs_chunk(vg, *, m=5, steps_per_call=1, max_ls=_MAX_LS,
         dphi0 = dot(grad0, d)
         # steepest descent if the two-loop direction is not a descent
         # direction (possible with stale curvature after skipped updates)
-        if bool(dphi0 >= 0):
+        if _fit_sync("descent", dphi0 >= 0):
             d = -grad0
             dphi0 = -dot(grad0, grad0)
 
@@ -147,8 +157,8 @@ def make_lbfgs_chunk(vg, *, m=5, steps_per_call=1, max_ls=_MAX_LS,
             overshoot = dphi > -_C2 * dphi0        # strong-Wolfe far side
             tiny = t * torch.abs(dphi0) <= eps_f * torch.abs(value0)
             armijo, too_short, overshoot, tiny = (
-                bool(v) for v in torch.stack(
-                    [armijo, too_short, overshoot, tiny]).tolist())
+                bool(v) for v in _fit_sync("trial", torch.stack(
+                    [armijo, too_short, overshoot, tiny])))
             ok = armijo and ((not too_short and not overshoot) or tiny)
             done = ok or (tiny and not armijo)
             if not armijo or overshoot:
@@ -172,7 +182,7 @@ def make_lbfgs_chunk(vg, *, m=5, steps_per_call=1, max_ls=_MAX_LS,
         # update is skipped
         sy, yy = dots([s, y], [y, y])
         new_state = dict(state)
-        if ok and bool(sy > _MIN_CURVATURE):
+        if ok and _fit_sync("curvature", sy > _MIN_CURVATURE):
             # chronological roll: drop the oldest pair, append the new
             new_state["s_hist"] = state["s_hist"][1:] + [s]
             new_state["y_hist"] = state["y_hist"][1:] + [y]
@@ -199,7 +209,8 @@ def make_lbfgs_chunk(vg, *, m=5, steps_per_call=1, max_ls=_MAX_LS,
         return [torch.sqrt(v) for v in dots(vs, vs)]
 
     def _converged(gnorm, xnorm):
-        return bool(gnorm <= conv_tol * torch.clamp(xnorm, min=1.0))
+        return _fit_sync("converged",
+                        gnorm <= conv_tol * torch.clamp(xnorm, min=1.0))
 
     def chunk(x, state, *extra):
         # the previous chunk left the norms of this (x, grad) in the
@@ -222,9 +233,11 @@ def make_lbfgs_chunk(vg, *, m=5, steps_per_call=1, max_ls=_MAX_LS,
             gnorm, xnorm = norms[:2]
             if _converged(gnorm, xnorm):
                 state = dict(state, converged=True)
-            cols = [state["value"], gnorm, xnorm,
-                    torch.tensor(float(state["ls_failed"]),
-                                 device=x.device)] + norms[2:]
+            # a copy from pageable host memory, which waits for the device
+            with span("fit.sync.upload"):
+                failed = torch.tensor(float(state["ls_failed"]),
+                                      device=x.device)
+            cols = [state["value"], gnorm, xnorm, failed] + norms[2:]
             recs.append(torch.stack([c.float() for c in cols]))
         state = dict(state, norms=(gnorm, xnorm))
         return x, state, torch.stack(recs)

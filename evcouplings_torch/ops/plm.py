@@ -81,11 +81,13 @@ from evcouplings_torch.kernels.limb_mm import (
 )
 from evcouplings_torch.kernels.seqdot import sequential_dot, sequential_dots
 from evcouplings_torch.ops.encode import one_hot, pad_rows, unflatten_J
-from evcouplings_torch.ops.lbfgs import init_lbfgs_state, make_lbfgs_chunk
+from evcouplings_torch.ops.lbfgs import (
+    _fit_sync, init_lbfgs_state, make_lbfgs_chunk,
+)
 from evcouplings_torch.ops.plm_update import (
     ADAM_B1, ADAM_B2, ADAM_EPS, fused_adam_update,
 )
-from evcouplings_torch.utils.tracing import annotate
+from evcouplings_torch.utils.tracing import add_counts, span
 
 
 @dataclass(frozen=True)
@@ -585,7 +587,13 @@ def make_plm_value_and_grad(L, q, cfg, mesh=None, symmetric_params=False):
         }
         return value, grads
 
-    return _pinned(vg, cfg.precision)
+    pinned = _pinned(vg, cfg.precision)
+
+    def value_grad(params, codes, weights, oh_aug=None):
+        with span("plm.value_grad"):
+            return pinned(params, codes, weights, oh_aug)
+
+    return value_grad
 
 
 def make_plm_loss(L, q, cfg, mesh=None, symmetric_params=False):
@@ -1033,7 +1041,7 @@ def _make_fista_step(L, q, cfg, mesh=None):
             inner = vdot(gJ, dP) + vdot(gh, dh)
             sqn = (0.5 * vdot(dP, dP) + vdot(dh, dh)).to(acc)
             bound = f_y + inner + sqn / (2.0 * s) + slack
-            return x_t, f_t, sqn, bool(f_t <= bound)
+            return x_t, f_t, sqn, _fit_sync("backtrack", f_t <= bound)
 
         x_new, f_new, sqn, ok = try_step(s)
         k = 1
@@ -1109,6 +1117,11 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
             device=None):
     """Fit a Potts model by pseudolikelihood maximization.
 
+    While a torch profiler runs, the fit records the span "fit" (count:
+    iterations) over "fit.setup", "fit.loop" (every
+    "plm.value_grad" and every "fit.sync.*" read of the device inside it)
+    and "fit.finish" (utils/tracing.span).
+
     Parameters
     ----------
     codes : (N, L) int array, entries in [0, q) or -1 (excluded position)
@@ -1139,161 +1152,180 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
     PlmFitResult
     """
     _check_config(cfg)
-    device = resolve_device(
-        mesh.device if device is None and mesh is not None else device)
-    codes = np.asarray(codes)
-    weights = np.asarray(weights, dtype=np.float64)
-    N, L = codes.shape
-    q = int(num_symbols)
-    lq = L * q
-    dsize = lq * lq
+    with span("fit"):
+        return _fit_plm(codes, weights, num_symbols, cfg, mesh, callback,
+                        checkpoint_file, checkpoint_every, device)
 
-    compute_dtype = _compute_dtype(cfg.dtype)
-    # masters, moments and weights stay f32 (f64 in float64 runs)
-    dtype = _acc_dtype(compute_dtype)
 
-    # pad rows to a block multiple per "data" rank: weight 0 AND codes -1
-    # rows; each rank keeps its own block of rows
-    n_data = 1 if mesh is None else mesh.shape[parallel.DATA_AXIS]
-    codes_p, _ = pad_rows(codes.astype(np.int8), cfg.block_size * n_data)
-    w_p, _ = pad_rows(weights, cfg.block_size * n_data)
-    codes_p[N:] = -1
-    n_loc = codes_p.shape[0] // n_data
-    d_idx = 0 if mesh is None else mesh.index(parallel.DATA_AXIS)
-    rows = slice(d_idx * n_loc, (d_idx + 1) * n_loc)
-    codes_d = torch.as_tensor(codes_p[rows], device=device)
-    w_d = torch.as_tensor(w_p[rows], device=device).to(dtype)
+def _fit_plm(codes, weights, num_symbols, cfg, mesh, callback,
+             checkpoint_file, checkpoint_every, device):
+    """fit_plm inside its span: the set-up, the loop and the finish."""
+    with span("fit.setup"):
+        device = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
+        codes = np.asarray(codes)
+        weights = np.asarray(weights, dtype=np.float64)
+        N, L = codes.shape
+        q = int(num_symbols)
+        lq = L * q
+        dsize = lq * lq
 
-    layout = _resolve_grad_layout(cfg, compute_dtype, n_loc,
-                                  _augmented_width(lq))
-    oh_dtype = _exact_dtype(compute_dtype, precision_limbs(cfg.precision),
-                            device)
-    oh_d = (build_augmented_onehot(codes_d, q, oh_dtype)
-            if layout == "two_phase" else None)
+        compute_dtype = _compute_dtype(cfg.dtype)
+        # masters, moments and weights stay f32 (f64 in float64 runs)
+        dtype = _acc_dtype(compute_dtype)
 
-    vg_fn = make_plm_value_and_grad(L, q, cfg, mesh=mesh,
-                                    symmetric_params=True)
-    params = {
-        "J": torch.zeros((lq, lq), dtype=dtype, device=device),
-        "h": torch.zeros((L, q), dtype=dtype, device=device),
-    }
-    steps_per_call = max(1, int(cfg.steps_per_call))
+        # pad rows to a block multiple per "data" rank: weight 0 AND codes -1
+        # rows; each rank keeps its own block of rows
+        n_data = 1 if mesh is None else mesh.shape[parallel.DATA_AXIS]
+        codes_p, _ = pad_rows(codes.astype(np.int8), cfg.block_size * n_data)
+        w_p, _ = pad_rows(weights, cfg.block_size * n_data)
+        codes_p[N:] = -1
+        n_loc = codes_p.shape[0] // n_data
+        d_idx = 0 if mesh is None else mesh.index(parallel.DATA_AXIS)
+        rows = slice(d_idx * n_loc, (d_idx + 1) * n_loc)
+        codes_d = torch.as_tensor(codes_p[rows], device=device)
+        w_d = torch.as_tensor(w_p[rows], device=device).to(dtype)
 
-    # resume from a snapshot if one exists
-    start_iter = 0
-    resumed = None
-    fingerprint = (fit_fingerprint(codes, weights, q, cfg, device, mesh)
-                   if checkpoint_file is not None else None)
-    have_ckpt = checkpoint_file is not None and os.path.exists(
-        checkpoint_file)
-    _agree_on_resume(mesh, checkpoint_file, have_ckpt)
-    if have_ckpt:
-        ckpt = np.load(checkpoint_file)
-        # the shape check (in restore_snapshot) comes first
-        params, resumed, start_iter = restore_snapshot(
-            ckpt, cfg.solver, L, q, dtype, device, cfg.memory_size)
-        _check_ckpt_fingerprint(ckpt, fingerprint, checkpoint_file)
-        _agree_on_resume(mesh, checkpoint_file, start_iter=start_iter)
+        layout = _resolve_grad_layout(cfg, compute_dtype, n_loc,
+                                      _augmented_width(lq))
+        oh_dtype = _exact_dtype(compute_dtype, precision_limbs(cfg.precision),
+                                device)
+        oh_d = (build_augmented_onehot(codes_d, q, oh_dtype)
+                if layout == "two_phase" else None)
+
+        vg_fn = make_plm_value_and_grad(L, q, cfg, mesh=mesh,
+                                        symmetric_params=True)
+        params = {
+            "J": torch.zeros((lq, lq), dtype=dtype, device=device),
+            "h": torch.zeros((L, q), dtype=dtype, device=device),
+        }
+        steps_per_call = max(1, int(cfg.steps_per_call))
+
+        # resume from a snapshot if one exists
+        start_iter = 0
+        resumed = None
+        fingerprint = (fit_fingerprint(codes, weights, q, cfg, device, mesh)
+                       if checkpoint_file is not None else None)
+        have_ckpt = checkpoint_file is not None and os.path.exists(
+            checkpoint_file)
+        _agree_on_resume(mesh, checkpoint_file, have_ckpt)
+        if have_ckpt:
+            ckpt = np.load(checkpoint_file)
+            # the shape check (in restore_snapshot) comes first
+            params, resumed, start_iter = restore_snapshot(
+                ckpt, cfg.solver, L, q, dtype, device, cfg.memory_size)
+            _check_ckpt_fingerprint(ckpt, fingerprint, checkpoint_file)
+            _agree_on_resume(mesh, checkpoint_file, start_iter=start_iter)
+
+        with matmul_precision(cfg.precision):
+            if cfg.solver == "lbfgs":
+                def _unflatten_x(x):
+                    return {"J": x[:dsize].reshape(lq, lq),
+                            "h": x[dsize:].reshape(L, q)}
+
+                def vg_flat(x, codes, weights, oh_aug):
+                    value, grads = vg_fn(_unflatten_x(x), codes, weights,
+                                         oh_aug)
+                    return value.to(dtype), torch.cat(
+                        [grads["J"].reshape(-1), grads["h"].reshape(-1)])
+
+                dot, dots = _lbfgs_dots(compute_dtype, cfg.precision, device)
+                lb_chunk = make_lbfgs_chunk(
+                    vg_flat, m=cfg.memory_size, steps_per_call=steps_per_call,
+                    conv_tol=cfg.conv_tol, norm_split=dsize,
+                    dot=dot, dots=dots)
+                if resumed is not None:
+                    state = resumed
+                else:
+                    # a parameter-only snapshot restarts the history here
+                    x0 = torch.cat([params["J"].reshape(-1),
+                                    params["h"].reshape(-1)])
+                    value0, grad0 = vg_flat(x0, codes_d, w_d, oh_d)
+                    state = (x0, init_lbfgs_state(x0, value0, grad0,
+                                                  m=cfg.memory_size))
+
+                def run_chunk(params, state):
+                    x, lstate = state
+                    x, lstate, metrics = lb_chunk(x, lstate, codes_d, w_d,
+                                                  oh_d)
+                    return _unflatten_x(x), (x, lstate), metrics
+            else:
+                if cfg.solver == "fista":
+                    step = _make_fista_step(L, q, cfg, mesh)
+                    state = resumed or {
+                        "y": params, "x_prev": params,
+                        "tk": torch.ones((), dtype=dtype, device=device),
+                        "step": torch.ones((), dtype=dtype, device=device),
+                        "f_prev": torch.full((), float("inf"), dtype=dtype,
+                                             device=device),
+                    }
+                else:
+                    state = resumed or {
+                        "count": 0,
+                        "mu": {k: torch.zeros_like(v)
+                               for k, v in params.items()},
+                        "nu": {k: torch.zeros_like(v)
+                               for k, v in params.items()},
+                    }
+                    if _resolve_fused_update(cfg, mesh, dtype, device):
+                        step = _make_fused_adam_step(
+                            make_plm_nll_vg(L, q, cfg, mesh), L, q, cfg,
+                            compute_dtype)
+                        # carried across steps; from the masters it is bitwise
+                        # the matrix K2 emits, so a resumed fit rebuilds it
+                        state["J_aug"] = _build_j_aug(
+                            params, L, q, compute_dtype, _augmented_width(lq),
+                            symmetric=True)
+                    else:
+                        step = _make_adam_step(vg_fn, cfg)
+
+                def run_chunk(params, state):
+                    rows = []
+                    for _ in range(steps_per_call):
+                        params, state, row = step(params, state, codes_d, w_d,
+                                                  oh_d)
+                        rows.append(row)
+                    return params, state, torch.stack(rows)
+
+            save = None
+            if checkpoint_file is not None and (mesh is None
+                                                or mesh.is_writer):
+                # one writer: the ranks hold the same bytes
+                def save(params, state, iteration):
+                    write_snapshot(checkpoint_file, snapshot_arrays(
+                        cfg.solver, params, state, iteration, fingerprint))
 
     with matmul_precision(cfg.precision):
-        if cfg.solver == "lbfgs":
-            def _unflatten_x(x):
-                return {"J": x[:dsize].reshape(lq, lq),
-                        "h": x[dsize:].reshape(L, q)}
-
-            def vg_flat(x, codes, weights, oh_aug):
-                value, grads = vg_fn(_unflatten_x(x), codes, weights, oh_aug)
-                return value.to(dtype), torch.cat(
-                    [grads["J"].reshape(-1), grads["h"].reshape(-1)])
-
-            dot, dots = _lbfgs_dots(compute_dtype, cfg.precision, device)
-            lb_chunk = make_lbfgs_chunk(
-                vg_flat, m=cfg.memory_size, steps_per_call=steps_per_call,
-                conv_tol=cfg.conv_tol, norm_split=dsize,
-                dot=dot, dots=dots)
-            if resumed is not None:
-                state = resumed
-            else:
-                # a parameter-only snapshot restarts the history here
-                x0 = torch.cat([params["J"].reshape(-1),
-                                params["h"].reshape(-1)])
-                value0, grad0 = vg_flat(x0, codes_d, w_d, oh_d)
-                state = (x0, init_lbfgs_state(x0, value0, grad0,
-                                              m=cfg.memory_size))
-
-            def run_chunk(params, state):
-                x, lstate = state
-                x, lstate, metrics = lb_chunk(x, lstate, codes_d, w_d, oh_d)
-                return _unflatten_x(x), (x, lstate), metrics
-        else:
-            if cfg.solver == "fista":
-                step = _make_fista_step(L, q, cfg, mesh)
-                state = resumed or {
-                    "y": params, "x_prev": params,
-                    "tk": torch.ones((), dtype=dtype, device=device),
-                    "step": torch.ones((), dtype=dtype, device=device),
-                    "f_prev": torch.full((), float("inf"), dtype=dtype,
-                                         device=device),
-                }
-            else:
-                state = resumed or {
-                    "count": 0,
-                    "mu": {k: torch.zeros_like(v) for k, v in params.items()},
-                    "nu": {k: torch.zeros_like(v) for k, v in params.items()},
-                }
-                if _resolve_fused_update(cfg, mesh, dtype, device):
-                    step = _make_fused_adam_step(
-                        make_plm_nll_vg(L, q, cfg, mesh), L, q, cfg,
-                        compute_dtype)
-                    # carried across steps; from the masters it is bitwise
-                    # the matrix K2 emits, so a resumed fit rebuilds it
-                    state["J_aug"] = _build_j_aug(
-                        params, L, q, compute_dtype, _augmented_width(lq),
-                        symmetric=True)
-                else:
-                    step = _make_adam_step(vg_fn, cfg)
-
-            def run_chunk(params, state):
-                rows = []
-                for _ in range(steps_per_call):
-                    params, state, row = step(params, state, codes_d, w_d,
-                                              oh_d)
-                    rows.append(row)
-                return params, state, torch.stack(rows)
-
-        save = None
-        if checkpoint_file is not None and (mesh is None or mesh.is_writer):
-            # one writer: the ranks hold the same bytes
-            def save(params, state, iteration):
-                write_snapshot(checkpoint_file, snapshot_arrays(
-                    cfg.solver, params, state, iteration, fingerprint))
-
-        (params, state, table, it, converged, ls_failed, value,
-         last) = _fit_loop(run_chunk, params, state, cfg, steps_per_call,
-                           callback, start_iter, save, checkpoint_every,
-                           resumed is not None)
-        if cfg.solver == "adam":
-            # Adam rows record fx at the PRE-update iterate; one more
-            # evaluation prices the parameters actually returned
-            value = float(vg_fn(params, codes_d, w_d, oh_d)[0])
-        elif last is not None:
-            # the final metrics row prices the returned parameters (a
-            # chunk may overshoot max_iter with live steps)
-            value = float(last[-1][0])
-        elif np.isnan(value):
-            # the loop never dispatched (a resume at max_iter, or a frozen
-            # resumed state): the FISTA state carries the full nonsmooth
-            # objective of its last iterate, which vg_fn would smooth
-            f_prev = (float(state["f_prev"]) if cfg.solver == "fista"
-                      else float("nan"))
-            value = (f_prev if np.isfinite(f_prev)
-                     else float(vg_fn(params, codes_d, w_d, oh_d)[0]))
-
-    P_mat = params["J"].detach().to("cpu", torch.float64).numpy()
-    J_ij = unflatten_J(0.5 * (P_mat + P_mat.T), L, q)
+        with span("fit.loop"):
+            (params, state, table, it, converged, ls_failed, value,
+             last) = _fit_loop(run_chunk, params, state, cfg, steps_per_call,
+                               callback, start_iter, save, checkpoint_every,
+                               resumed is not None)
+        add_counts(iterations=len(table))
+        with span("fit.finish"):
+            if cfg.solver == "adam":
+                # Adam rows record fx at the PRE-update iterate; one more
+                # evaluation prices the parameters actually returned
+                value = float(vg_fn(params, codes_d, w_d, oh_d)[0])
+            elif last is not None:
+                # the final metrics row prices the returned parameters (a
+                # chunk may overshoot max_iter with live steps)
+                value = float(last[-1][0])
+            elif np.isnan(value):
+                # the loop never dispatched (a resume at max_iter, or a
+                # frozen resumed state): the FISTA state carries the full
+                # nonsmooth objective of its last iterate, which vg_fn
+                # would smooth
+                f_prev = (float(state["f_prev"]) if cfg.solver == "fista"
+                          else float("nan"))
+                value = (f_prev if np.isfinite(f_prev)
+                         else float(vg_fn(params, codes_d, w_d, oh_d)[0]))
+            P_mat = params["J"].detach().to("cpu", torch.float64).numpy()
+            J_ij = unflatten_J(0.5 * (P_mat + P_mat.T), L, q)
+            h_i = params["h"].detach().to("cpu", torch.float64).numpy()
     return PlmFitResult(
         J_ij=J_ij,
-        h_i=params["h"].detach().to("cpu", torch.float64).numpy(),
+        h_i=h_i,
         iteration_table=table,
         # total iterations the returned parameters received, resumed
         # ones included
@@ -1349,18 +1381,17 @@ def _fit_loop(run_chunk, params, state, cfg, steps_per_call, callback,
         xd = x.double()
         if ls["ls_failed"]:
             ls_failed = True
-        elif ls["converged"] or bool(
-                torch.sqrt(torch.dot(g, g))
-                <= cfg.conv_tol * max(1.0, float(torch.sqrt(
+        elif ls["converged"] or _fit_sync(
+                "resume", torch.sqrt(torch.dot(g, g))
+                <= cfg.conv_tol * max(1.0, _fit_sync("resume", torch.sqrt(
                     torch.dot(xd, xd))))):
             converged = True
     # LBFGS rows carry the linesearch-failure flag in column 3
     ls_col = 3 if cfg.solver == "lbfgs" else None
     while it < cfg.max_iter and not converged and not ls_failed:
         n_steps = min(steps_per_call, cfg.max_iter - it)
-        with annotate("plm_step_chunk"):
-            params, state, metrics = run_chunk(params, state)
-        metrics = metrics.cpu().double().numpy()
+        params, state, metrics = run_chunk(params, state)
+        metrics = np.asarray(_fit_sync("metrics", metrics), dtype=np.float64)
         now = time.time() - t0
         # the table is truncated at the first converged iteration (plmc
         # semantics); the parameters keep any extra steps of the chunk

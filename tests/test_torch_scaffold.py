@@ -113,12 +113,15 @@ NO_TORCH_COUNTERPART = {
     # every collective through evcouplings_torch.parallel, which records
     # it for collective_profile
     "evcouplings_torch.parallel.comm_accounting": {"collectives_in_hlo"},
+    # a named profiler region; the port's span is one, recorded into the
+    # span registry as well
+    "evcouplings_torch.utils.tracing": {"annotate"},
 }
 # public names the port has beside its twin's: device selection, the
 # float64 host inversion and the distance blocks' size, the snapshot
 # codec of checkpoint/resume, counters read by chip_smoke.py, dtypes,
 # the mesh and the collectives of one process per rank (and the record
-# collective_profile reads)
+# collective_profile reads), and the spans the benchmark's readers read
 PORT_ADDED_NAMES = {
     "evcouplings_torch": {"resolve_device"},
     "evcouplings_torch.ops.distances": {"block_bytes"},
@@ -132,6 +135,8 @@ PORT_ADDED_NAMES = {
         "all_reduce_many", "barrier",
         "broadcast", "broadcast_object", "process_count", "process_index"},
     "evcouplings_torch.parallel.comm_accounting": {"record"},
+    "evcouplings_torch.utils.tracing": {"add_counts", "span",
+                                        "span_records"},
 }
 
 

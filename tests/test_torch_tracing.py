@@ -3,8 +3,9 @@ the JAX package's, through the cases of tests/test_tracing.py: the same
 scopes through both packages' stage_timer give span tables of the same
 scopes, columns and dtypes (a span is recorded on exception too), both
 write the same CSV layout and None for an empty table, device_trace is a
-no-op without a trace directory and writes a trace into one, and annotate
-names a region (in the port, one that the trace shows by name).
+no-op without a trace directory and writes a trace into one, and the
+JAX package's annotate and the port's span name a region (in the port, one
+that the trace shows by name).
 
 Scopes, columns, dtypes, file names and return values are compared
 exactly; the seconds are each package's own clock, so they are held only
@@ -103,13 +104,13 @@ def test_noop_without_dir(monkeypatch, tmp_path, both):
 
 def test_trace_writes_to_dir(tmp_path):
     """Both packages create the directory and write into it; the port's
-    trace is one Chrome trace JSON whose events hold an annotated region
-    by name."""
+    trace is one Chrome trace JSON whose events hold a span's region by
+    name."""
     for tag, module in (("torch", tracing), ("jax", jax_tracing)):
         trace_dir = str(tmp_path / tag)
         with module.device_trace(trace_dir):
             if module is tracing:
-                with tracing.annotate("reweighting"):
+                with tracing.span("reweighting"):
                     torch.ones(3).sum()
             else:
                 jnp.ones(3).sum().block_until_ready()
@@ -132,7 +133,9 @@ def test_trace_dir_from_the_environment(monkeypatch, tmp_path):
 
 
 def test_annotation_context():
-    with tracing.annotate("reweighting"):
+    """The port's span, like the JAX package's annotate, names a region
+    and leaves what runs in it alone."""
+    with tracing.span("reweighting"):
         x = torch.arange(4).sum()
     with jax_tracing.annotate("reweighting"):
         y = jnp.arange(4).sum()
