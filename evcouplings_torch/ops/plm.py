@@ -314,9 +314,10 @@ def _block_nll_residual(J_aug, oh_aug, c, w, L, q, acc):
     logZ = ((torch.log(Z) + rowmax.to(acc)) * m_acc).sum(dim=1)
     nll_b = -torch.dot(w.to(acc), obs - logZ)
 
-    # r = w * (softmax * m - oh)
+    # r = w * (softmax * m - oh), each site's factor broadcast over its q
+    # lanes
     rz = (m_acc / Z).to(logits.dtype)
-    bcast = rz.repeat_interleave(q, dim=1)
+    bcast = rz[:, :, None].expand(B, L, q).reshape(B, lq)
     r = w[:, None] * (e * bcast - oh)
     return nll_b, r
 
@@ -875,6 +876,74 @@ def _lbfgs_dots(compute_dtype, precision, device):
     return torch.dot, None
 
 
+def _replays_value_grad(device, mesh):
+    """Whether an LBFGS fit replays its flat value+grad as one CUDA graph
+    (_ValueGradGraph): on a CUDA device without a mesh. A sharded fit
+    sums each evaluation over its ranks through the host and stays
+    eager, as does every fit on the CPU."""
+    return torch.device(device).type == "cuda" and mesh is None
+
+
+# one capture stream per CUDA device, kept for the process: PyTorch keeps a
+# cuBLAS workspace per stream, so captures on one stream share one
+_CAPTURE_STREAMS = {}
+
+
+class _ValueGradGraph:
+    """A fit's flat value+grad, vg_flat(x, *rows) -> (value, grad),
+    captured once as a CUDA graph and replayed for each later evaluation.
+
+    The graph reads the static buffer `x`, into which each call copies
+    its argument, and the fit's row tensors `rows`, which keep their
+    addresses for the whole fit; its temporaries live in a private memory
+    pool. A call replays the same kernels in the same order on the same
+    values as an eager evaluation, so it gives the same bits, and returns
+    copies of the graph's outputs: the solver keeps a value and gradient
+    across evaluations, which the next replay would overwrite. Each call
+    is one "plm.value_grad" span with the count `replayed`, and adds the
+    K5 launches of the capture to limb_mm.launches, as an eager
+    evaluation does. The capture launches nothing; take it after an eager
+    evaluation of the same fit, which loads the kernels' libraries and
+    cuBLAS's handle. release() frees the graph and, with its outputs,
+    its pool."""
+
+    def __init__(self, vg_flat, x, rows):
+        device = x.device
+        stream = _CAPTURE_STREAMS.get(device)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+        self.rows = rows
+        self.x = x.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        launches = limb_mm.launches
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with span("plm.graph_capture"), torch.cuda.stream(stream):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.value, self.grad = vg_flat(self.x, *rows)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.k5_launches = limb_mm.launches - launches
+        limb_mm.launches = launches
+
+    def __call__(self, x, *rows):
+        if len(rows) != len(self.rows) or any(
+                a is not b for a, b in zip(rows, self.rows)):
+            raise ValueError("a value+grad graph replays on the rows it "
+                             "was captured with")
+        with span("plm.value_grad"):
+            add_counts(replayed=1)
+            self.x.copy_(x)
+            self.graph.replay()
+            limb_mm.launches += self.k5_launches
+            return self.value.clone(), self.grad.clone()
+
+    def release(self):
+        self.graph.reset()
+        self.x = self.value = self.grad = self.rows = None
+
+
 def _tree_norm(params):
     return torch.sqrt(sum(torch.sum(v * v) for v in params.values()))
 
@@ -1118,9 +1187,15 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
     """Fit a Potts model by pseudolikelihood maximization.
 
     While a torch profiler runs, the fit records the span "fit" (count:
-    iterations) over "fit.setup", "fit.loop" (every
-    "plm.value_grad" and every "fit.sync.*" read of the device inside it)
-    and "fit.finish" (utils/tracing.span).
+    iterations) over "fit.setup" (with "plm.graph_capture" where the fit
+    captures its value+grad), "fit.loop" (every "plm.value_grad", count
+    `replayed` where it is a replay, and every "fit.sync.*" read of the
+    device inside it) and "fit.finish" (utils/tracing.span).
+
+    An LBFGS fit on a CUDA device without a mesh evaluates its first
+    value+grad eagerly, captures the evaluation as one CUDA graph and
+    replays it for every later one (_ValueGradGraph): the same kernels on
+    the same values, so the same bits, issued by one launch.
 
     Parameters
     ----------
@@ -1217,6 +1292,7 @@ def _fit_plm(codes, weights, num_symbols, cfg, mesh, callback,
             _check_ckpt_fingerprint(ckpt, fingerprint, checkpoint_file)
             _agree_on_resume(mesh, checkpoint_file, start_iter=start_iter)
 
+        graph = None
         with matmul_precision(cfg.precision):
             if cfg.solver == "lbfgs":
                 def _unflatten_x(x):
@@ -1229,20 +1305,28 @@ def _fit_plm(codes, weights, num_symbols, cfg, mesh, callback,
                     return value.to(dtype), torch.cat(
                         [grads["J"].reshape(-1), grads["h"].reshape(-1)])
 
-                dot, dots = _lbfgs_dots(compute_dtype, cfg.precision, device)
-                lb_chunk = make_lbfgs_chunk(
-                    vg_flat, m=cfg.memory_size, steps_per_call=steps_per_call,
-                    conv_tol=cfg.conv_tol, norm_split=dsize,
-                    dot=dot, dots=dots)
+                rows_d = (codes_d, w_d, oh_d)
                 if resumed is not None:
                     state = resumed
                 else:
                     # a parameter-only snapshot restarts the history here
                     x0 = torch.cat([params["J"].reshape(-1),
                                     params["h"].reshape(-1)])
-                    value0, grad0 = vg_flat(x0, codes_d, w_d, oh_d)
+                    value0, grad0 = vg_flat(x0, *rows_d)
                     state = (x0, init_lbfgs_state(x0, value0, grad0,
                                                   m=cfg.memory_size))
+                value_grad = vg_flat
+                if _replays_value_grad(device, mesh):
+                    if resumed is not None:
+                        # the capture follows an eager evaluation
+                        vg_flat(state[0], *rows_d)
+                    graph = value_grad = _ValueGradGraph(vg_flat, state[0],
+                                                         rows_d)
+                dot, dots = _lbfgs_dots(compute_dtype, cfg.precision, device)
+                lb_chunk = make_lbfgs_chunk(
+                    value_grad, m=cfg.memory_size,
+                    steps_per_call=steps_per_call, conv_tol=cfg.conv_tol,
+                    norm_split=dsize, dot=dot, dots=dots)
 
                 def run_chunk(params, state):
                     x, lstate = state
@@ -1296,11 +1380,16 @@ def _fit_plm(codes, weights, num_symbols, cfg, mesh, callback,
                         cfg.solver, params, state, iteration, fingerprint))
 
     with matmul_precision(cfg.precision):
-        with span("fit.loop"):
-            (params, state, table, it, converged, ls_failed, value,
-             last) = _fit_loop(run_chunk, params, state, cfg, steps_per_call,
-                               callback, start_iter, save, checkpoint_every,
-                               resumed is not None)
+        try:
+            with span("fit.loop"):
+                (params, state, table, it, converged, ls_failed, value,
+                 last) = _fit_loop(run_chunk, params, state, cfg,
+                                   steps_per_call, callback, start_iter, save,
+                                   checkpoint_every, resumed is not None)
+        finally:
+            # whether the loop ends, raises or is abandoned by its callback
+            if graph is not None:
+                graph.release()
         add_counts(iterations=len(table))
         with span("fit.finish"):
             if cfg.solver == "adam":

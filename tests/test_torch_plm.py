@@ -2,17 +2,27 @@
 small problems: the closed-form value+grad in float64 (both gradient
 layouts), whole fits with both solvers, the fused Adam epilogue against
 the unfused step, a bfloat16 value+grad, and the configuration surface.
+On the card (marked `gpu`, skipped without a CUDA device; run them there
+with `python -m pytest --noconftest tests/test_torch_plm.py -m gpu -q`):
+the LBFGS fit's replayed value+grad graph against its eager evaluation.
 """
 
 import dataclasses
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from evcouplings_tpu.ops import plm as jp
+from evcouplings_torch.kernels.limb_mm import limb_mm
 from evcouplings_torch.ops import plm as tp
+
+try:
+    import jax.numpy as jnp
+
+    from evcouplings_tpu.ops import plm as jp
+except ImportError:
+    # the machine with the card has no JAX; its cases are the `gpu` ones
+    jnp = jp = None
 
 
 def _problem(seed=0, N=40, L=5, q=4, block=16, missing=True):
@@ -311,3 +321,111 @@ def test_matmul_precision_restores_flags():
     with pytest.raises(ValueError):
         with matmul_precision("fastest"):
             pass
+
+
+@pytest.fixture
+def cuda():
+    # decided per test, never at import: every worker collects the same
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs and the kernels)")
+    return torch.device("cuda")
+
+
+def _card_fit_problem(seed=3, N=1500, L=40, q=21):
+    """Codes and weights of a small family-like alignment, three 512-row
+    blocks after padding."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, q, size=(8, L))
+    codes = base[rng.integers(0, 8, size=N)]
+    flip = rng.random((N, L)) < 0.2
+    codes = np.where(flip, rng.integers(0, q, size=(N, L)), codes)
+    codes[::11, : L // 4] = -1
+    return codes.astype(np.int8), rng.random(N) + 0.2, q
+
+
+class _CheckedGraph(tp._ValueGradGraph):
+    """The fit's graph, each replay held to an eager evaluation at the same
+    x: the same value and gradient bits, and as many K5 launches."""
+
+    def __init__(self, vg_flat, x, rows):
+        super().__init__(vg_flat, x, rows)
+        self.eager = vg_flat
+        self.replays = []
+
+    def __call__(self, x, *rows):
+        before = limb_mm.launches
+        value, grad = super().__call__(x, *rows)
+        replayed = limb_mm.launches - before
+        before = limb_mm.launches
+        v, g = self.eager(x, *rows)
+        assert limb_mm.launches - before == replayed
+        assert torch.equal(value, v) and torch.equal(grad, g)
+        # every replay reads its own x (no stale static buffer), and what
+        # a replay returned is the caller's (the next one leaves it)
+        for old_x, old_grad, copy in self.replays[-1:]:
+            assert not torch.equal(old_x, x)
+            assert torch.equal(old_grad, copy)
+        self.replays.append((x.clone(), grad, grad.clone()))
+        return value, grad
+
+
+_CARD_LAYOUTS = [("highest", "carried"), ("high", "carried"),
+                 ("default", "carried"), ("highest", "two_phase"),
+                 ("high", "two_phase"), ("default", "two_phase")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision,layout", _CARD_LAYOUTS)
+def test_replayed_value_grad_is_the_eager_bits(cuda, monkeypatch, precision,
+                                               layout):
+    """Every replay of a 5-iteration LBFGS fit gives the eager evaluation's
+    value and gradient bits at its x, and K5's launch count advances by
+    the eager evaluation's launches."""
+    made = []
+
+    def checked(*args):
+        made.append(_CheckedGraph(*args))
+        return made[-1]
+
+    monkeypatch.setattr(tp, "_ValueGradGraph", checked)
+    codes, w, q = _card_fit_problem()
+    cfg = tp.PlmConfig(max_iter=5, conv_tol=0.0, precision=precision,
+                       grad_layout=layout, lambda_J=0.01 * (q - 1) * 39)
+    res = tp.fit_plm(codes, w, q, cfg, device=cuda)
+    (graph,) = made
+    assert len(res.iteration_table) == 5
+    assert len(graph.replays) >= 5
+    assert graph.k5_launches == (0 if precision == "highest" else
+                                 (2 * 3 if layout == "carried" else 3 + 1))
+    # the fit released its graph
+    assert graph.x is None and graph.grad is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision,layout", _CARD_LAYOUTS)
+def test_replayed_fit_is_the_eager_fit(cuda, monkeypatch, precision, layout):
+    """A 5-iteration LBFGS fit with its value+grad replayed gives the eager
+    fit's iteration table and J/h bits, with as many K5 launches."""
+    codes, w, q = _card_fit_problem(seed=4)
+    cfg = tp.PlmConfig(max_iter=5, conv_tol=0.0, precision=precision,
+                       grad_layout=layout, lambda_J=0.01 * (q - 1) * 39)
+
+    def fit():
+        before = limb_mm.launches
+        res = tp.fit_plm(codes, w, q, cfg, device=cuda)
+        return res, limb_mm.launches - before
+
+    replayed, k5_replayed = fit()
+    monkeypatch.setattr(tp, "_replays_value_grad", lambda device, mesh: False)
+    eager, k5_eager = fit()
+    assert k5_replayed == k5_eager
+    assert len(eager.iteration_table) == 5
+
+    def rows(res):
+        return [{k: v for k, v in r.items() if k != "time"}
+                for r in res.iteration_table]
+
+    assert rows(replayed) == rows(eager)
+    assert np.array_equal(replayed.J_ij, eager.J_ij)
+    assert np.array_equal(replayed.h_i, eager.h_i)
+    assert replayed.final_loss == eager.final_loss

@@ -4,7 +4,10 @@ profiler, spans nest with their parent's and root's ids, record an
 exception, and agree with the profiler's host events of the same name; and
 a tiny run_plm on the host yields the span tree of the couplings stage,
 with one plm.value_grad span per evaluation of the fit loop, and the same
-files as an untraced run."""
+files as an untraced run. The LBFGS fit's value+grad graph
+(ops/plm._ValueGradGraph) is taken on a CUDA device without a mesh alone:
+a fit on the host stays eager and records no replay; the graph's own
+bookkeeping is checked here with CUDA's graph and stream stood in for."""
 
 import numpy as np
 import pytest
@@ -162,3 +165,129 @@ def test_fit_plm_is_a_root():
     roots = [r for r in tracing.span_records() if r["parent"] is None]
     assert [r["name"] for r in roots] == ["fit"]
     assert roots[0]["counts"] == {"iterations": len(res.iteration_table)}
+
+
+class _Mesh:
+    """Stands in for a mesh: the rule asks only whether there is one."""
+
+
+@pytest.mark.parametrize("device,mesh,replays", [
+    ("cpu", None, False), ("cpu", _Mesh(), False),
+    ("cuda", _Mesh(), False), ("cuda:0", _Mesh(), False),
+    ("cuda", None, True), ("cuda:0", None, True)])
+def test_value_grad_graph_rule(device, mesh, replays):
+    assert ops_plm._replays_value_grad(torch.device(device), mesh) is replays
+
+
+def _fit_problem(seed=5, n=60, L=6, q=4):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, q, size=(n, L))
+    codes[::5, 2] = -1
+    return codes, rng.random(n) + 0.5, q
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("layout", ["carried", "two_phase"])
+def test_host_fit_takes_no_graph(monkeypatch, precision, layout):
+    """A traced LBFGS fit on the host captures nothing: one plm.value_grad
+    span per evaluation, none of them counted as a replay, and no capture
+    span."""
+    def no_graph(*args):
+        raise AssertionError("a host fit built a value+grad graph")
+
+    monkeypatch.setattr(ops_plm, "_ValueGradGraph", no_graph)
+    calls = _counting_value_and_grad(monkeypatch)
+    codes, w, q = _fit_problem()
+    cfg = ops_plm.PlmConfig(max_iter=4, block_size=16, precision=precision,
+                            grad_layout=layout, conv_tol=0.0)
+    tracing.clear_spans()
+    with torch.profiler.profile(activities=CPU):
+        res = ops_plm.fit_plm(codes, w, q, cfg, device="cpu")
+    records = tracing.span_records()
+    by_name = _by_name(records)
+    assert "plm.graph_capture" not in by_name
+    evals = by_name["plm.value_grad"]
+    assert len(evals) == len(calls) > len(res.iteration_table)
+    assert all(r["counts"] == {} for r in evals)
+
+
+class _FakeGraph:
+    """torch.cuda.CUDAGraph stood in for on the host: capture records
+    nothing, a replay counts itself."""
+
+    def __init__(self):
+        self.log = []
+
+    def capture_begin(self, capture_error_mode="global"):
+        self.log.append(("begin", capture_error_mode))
+
+    def capture_end(self):
+        self.log.append(("end",))
+
+    def replay(self):
+        self.log.append(("replay",))
+
+    def reset(self):
+        self.log.append(("reset",))
+
+
+class _FakeStream:
+    def wait_stream(self, other):
+        pass
+
+
+def test_value_grad_graph_bookkeeping(monkeypatch):
+    """The graph's wrapper, with CUDA's graph and streams stood in for on
+    the host: the capture's K5 launches are taken back and added again per
+    replay, each call copies its x into the static buffer, replays once
+    inside one plm.value_grad span counted as a replay, and returns copies
+    of the static outputs; a call with other rows raises; release() resets
+    the graph and drops the buffers."""
+    import contextlib
+
+    from evcouplings_torch.kernels.limb_mm import limb_mm
+
+    graphs = []
+
+    def new_graph():
+        graphs.append(_FakeGraph())
+        return graphs[-1]
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", new_graph)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(ops_plm, "_CAPTURE_STREAMS", {})
+
+    def vg_flat(x, codes, weights):
+        limb_mm.launches += 3
+        return (x * weights).sum(), x * codes
+
+    rows = (torch.full((4,), 2.0), torch.full((4,), 0.5))
+    x0 = torch.zeros(4)
+    before = limb_mm.launches
+    g = ops_plm._ValueGradGraph(vg_flat, x0, rows)
+    (fake,) = graphs
+    assert fake.log == [("begin", "thread_local"), ("end",)]
+    assert limb_mm.launches == before and g.k5_launches == 3
+    assert g.x is not x0
+    x1 = torch.arange(4.0)
+    tracing.clear_spans()
+    with torch.profiler.profile(activities=CPU):
+        value, grad = g(x1, *rows)
+    (rec,) = tracing.span_records()
+    assert rec["name"] == "plm.value_grad"
+    assert rec["counts"] == {"replayed": 1}
+    assert fake.log[-1] == ("replay",)
+    assert limb_mm.launches == before + 3
+    assert torch.equal(g.x, x1)
+    # copies of the static outputs, which the next replay overwrites
+    assert value is not g.value and grad is not g.grad
+    assert torch.equal(value, g.value) and torch.equal(grad, g.grad)
+    with pytest.raises(ValueError):
+        g(x1, rows[0], rows[1].clone())
+    g.release()
+    assert fake.log[-1] == ("reset",)
+    assert g.x is None and g.value is None and g.grad is None
