@@ -958,20 +958,22 @@ def _metric_row(value, gnorm, xnorm, params):
 
 def _make_adam_step(vg_fn, cfg):
     """One unfused Adam step: optax.adam's scale_by_adam (eps_root 0)
-    followed by scaling with -lr."""
+    followed by scaling with -lr; the elementwise update runs under the
+    span "adam.update"."""
 
     def step(params, state, codes, weights, oh_aug):
         value, grad = vg_fn(params, codes, weights, oh_aug)
         count = state["count"] + 1
         mu, nu, new = {}, {}, {}
-        for k in ("J", "h"):
-            g = grad[k]
-            mu[k] = (1.0 - ADAM_B1) * g + ADAM_B1 * state["mu"][k]
-            nu[k] = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * state["nu"][k]
-            mu_hat = mu[k] / (1.0 - ADAM_B1 ** count)
-            nu_hat = nu[k] / (1.0 - ADAM_B2 ** count)
-            upd = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
-            new[k] = params[k] + (-cfg.adam_lr) * upd
+        with span("adam.update"):
+            for k in ("J", "h"):
+                g = grad[k]
+                mu[k] = (1.0 - ADAM_B1) * g + ADAM_B1 * state["mu"][k]
+                nu[k] = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * state["nu"][k]
+                mu_hat = mu[k] / (1.0 - ADAM_B1 ** count)
+                nu_hat = nu[k] / (1.0 - ADAM_B2 ** count)
+                upd = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
+                new[k] = params[k] + (-cfg.adam_lr) * upd
         state = {"count": count, "mu": mu, "nu": nu}
         return new, state, _metric_row(value, _tree_norm(grad),
                                        _tree_norm(new), new)
@@ -992,29 +994,34 @@ def _make_fused_adam_step(nll_vg, L, q, cfg, dtype):
     then one pass of K2 (fused_adam_update) does symmetrize + l2 + Adam
     + the next step's compute-dtype couplings. The augmented matrix is
     carried across steps in state["J_aug"], never rebuilt from the f32
-    masters. Matches the unfused step up to float rounding."""
+    masters. Matches the unfused step up to float rounding. The products
+    and the value run under the span "plm.value_grad", K2 and the fields'
+    update under "adam.update" with the count `fused`."""
     lq = L * q
 
     def step(params, state, codes, weights, oh_aug):
         J_aug = state["J_aug"]
-        nll, dJh = nll_vg(J_aug, codes, weights, oh_aug)
-        value = (nll
-                 + cfg.lambda_h * torch.sum(J_aug[lq].float() ** 2)
-                 + cfg.lambda_J * 0.5 * torch.sum(J_aug[:lq].float() ** 2))
+        with span("plm.value_grad"):
+            nll, dJh = nll_vg(J_aug, codes, weights, oh_aug)
+            value = (nll
+                     + cfg.lambda_h * torch.sum(J_aug[lq].float() ** 2)
+                     + cfg.lambda_J * 0.5
+                     * torch.sum(J_aug[:lq].float() ** 2))
 
         count = state["count"] + 1
         bc1i, bc2i = _bias_corrections(count)
-        P2, mu2, nu2, J_eff2, gsq = fused_adam_update(
-            dJh, params["J"], state["mu"]["J"], state["nu"]["J"],
-            bc1i, bc2i, q=q, lambda_j=cfg.lambda_J, lr=cfg.adam_lr,
-            out_dtype=dtype)
+        with span("adam.update", fused=1):
+            P2, mu2, nu2, J_eff2, gsq = fused_adam_update(
+                dJh, params["J"], state["mu"]["J"], state["nu"]["J"],
+                bc1i, bc2i, q=q, lambda_j=cfg.lambda_J, lr=cfg.adam_lr,
+                out_dtype=dtype)
 
-        # fields: a plain (L, q)-sized Adam update
-        g_h = dJh[:, lq].reshape(L, q) + 2.0 * cfg.lambda_h * params["h"]
-        mu_h = ADAM_B1 * state["mu"]["h"] + (1.0 - ADAM_B1) * g_h
-        nu_h = ADAM_B2 * state["nu"]["h"] + (1.0 - ADAM_B2) * g_h ** 2
-        h2 = params["h"] - cfg.adam_lr * (mu_h * bc1i) / (
-            torch.sqrt(nu_h * bc2i) + ADAM_EPS)
+            # fields: a plain (L, q)-sized Adam update
+            g_h = dJh[:, lq].reshape(L, q) + 2.0 * cfg.lambda_h * params["h"]
+            mu_h = ADAM_B1 * state["mu"]["h"] + (1.0 - ADAM_B1) * g_h
+            nu_h = ADAM_B2 * state["nu"]["h"] + (1.0 - ADAM_B2) * g_h ** 2
+            h2 = params["h"] - cfg.adam_lr * (mu_h * bc1i) / (
+                torch.sqrt(nu_h * bc2i) + ADAM_EPS)
 
         new = {"J": P2, "h": h2}
         state = {
@@ -1187,10 +1194,12 @@ def fit_plm(codes, weights, num_symbols, cfg=PlmConfig(), mesh=None,
     """Fit a Potts model by pseudolikelihood maximization.
 
     While a torch profiler runs, the fit records the span "fit" (count:
-    iterations) over "fit.setup" (with "plm.graph_capture" where the fit
+    iterations) over "fit.setup" (with "fit.onehot" where the two-phase
+    layout builds its one-hot, and "plm.graph_capture" where the fit
     captures its value+grad), "fit.loop" (every "plm.value_grad", count
-    `replayed` where it is a replay, and every "fit.sync.*" read of the
-    device inside it) and "fit.finish" (utils/tracing.span).
+    `replayed` where it is a replay; each Adam step's "adam.update", count
+    `fused` where K2 takes the epilogue; and every "fit.sync.*" read of
+    the device inside it) and "fit.finish" (utils/tracing.span).
 
     An LBFGS fit on a CUDA device without a mesh evaluates its first
     value+grad eagerly, captures the evaluation as one CUDA graph and
@@ -1265,8 +1274,10 @@ def _fit_plm(codes, weights, num_symbols, cfg, mesh, callback,
                                       _augmented_width(lq))
         oh_dtype = _exact_dtype(compute_dtype, precision_limbs(cfg.precision),
                                 device)
-        oh_d = (build_augmented_onehot(codes_d, q, oh_dtype)
-                if layout == "two_phase" else None)
+        oh_d = None
+        if layout == "two_phase":
+            with span("fit.onehot"):
+                oh_d = build_augmented_onehot(codes_d, q, oh_dtype)
 
         vg_fn = make_plm_value_and_grad(L, q, cfg, mesh=mesh,
                                         symmetric_params=True)

@@ -9,6 +9,7 @@ Tracing / profiling hooks (port of evcouplings_tpu/utils/tracing.py).
   its parent's and its root's id, its start and end on `time.time_ns()`
   (the clock of the profiler's events), whether it closed on an
   exception, and its counts (`add_counts`). `span_records()` reads them.
+- `annotate` — the JAX package's named trace region: here a `span`.
 - `stage_timer` — a span that always records: the pipeline stages (or
   any scope), dumped as a `<prefix>_runtime.csv` table by the pipeline
   runtime (`get_spans`, `write_span_table`).
@@ -96,6 +97,12 @@ def span(name, **counts):
     if not _profiler_enabled():
         return _OFF
     return _Span(name, counts)
+
+
+def annotate(name):
+    """A named range of the device trace, as the JAX package's annotate
+    gives one: span(name), recorded as any span is."""
+    return span(name)
 
 
 def add_counts(**counts):

@@ -113,9 +113,6 @@ NO_TORCH_COUNTERPART = {
     # every collective through evcouplings_torch.parallel, which records
     # it for collective_profile
     "evcouplings_torch.parallel.comm_accounting": {"collectives_in_hlo"},
-    # a named profiler region; the port's span is one, recorded into the
-    # span registry as well
-    "evcouplings_torch.utils.tracing": {"annotate"},
 }
 # public names the port has beside its twin's: device selection, the
 # float64 host inversion and the distance blocks' size, the snapshot

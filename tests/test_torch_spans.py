@@ -7,7 +7,12 @@ with one plm.value_grad span per evaluation of the fit loop, and the same
 files as an untraced run. The LBFGS fit's value+grad graph
 (ops/plm._ValueGradGraph) is taken on a CUDA device without a mesh alone:
 a fit on the host stays eager and records no replay; the graph's own
-bookkeeping is checked here with CUDA's graph and stream stood in for."""
+bookkeeping is checked here with CUDA's graph and stream stood in for. A
+production (Adam) fit records its steps' epilogues and its one-hot's
+build, and the benchmark's readers of them read made-up records."""
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +23,10 @@ from evcouplings_torch.ops import plm as ops_plm
 from evcouplings_torch.utils import tracing
 
 GOLDEN = "tests/data/golden/golden.a2m"
+# the benchmark's readers (bench_port/) sit at the repository's root
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
 CPU = [torch.profiler.ProfilerActivity.CPU]
 
 
@@ -291,3 +300,165 @@ def test_value_grad_graph_bookkeeping(monkeypatch):
     g.release()
     assert fake.log[-1] == ("reset",)
     assert g.x is None and g.value is None and g.grad is None
+
+
+def _adam_cfg(fused, max_iter=6):
+    return ops_plm.PlmConfig(
+        max_iter=max_iter, block_size=2048, dtype="bfloat16",
+        precision="default", solver="adam", steps_per_call=3,
+        conv_tol=0.0, fused_update=fused)
+
+
+def _adam_problem():
+    codes, w, q = _fit_problem(n=2048)
+    return codes, w, q
+
+
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_adam_fit_spans(fused):
+    """A traced production fit on the host (bf16, the two-phase layout):
+    one adam.update span per step inside fit.loop, with the count `fused`
+    on the fused route (K2's plain version here) and none on the unfused
+    one, one plm.value_grad span per step beside it, and the one-hot's
+    build as fit.onehot inside fit.setup."""
+    codes, w, q = _adam_problem()
+    cfg = _adam_cfg(fused)
+    tracing.clear_spans()
+    with torch.profiler.profile(activities=CPU):
+        res = ops_plm.fit_plm(codes, w, q, cfg, device="cpu")
+    records = tracing.span_records()
+    by_id = {r["id"]: r for r in records}
+    by_name = _by_name(records)
+    (setup,), (loop,) = by_name["fit.setup"], by_name["fit.loop"]
+    (onehot,) = by_name["fit.onehot"]
+    assert onehot["parent"] == setup["id"]
+    updates = by_name["adam.update"]
+    assert len(updates) == len(res.iteration_table) == cfg.max_iter
+    assert all(by_id[r["parent"]]["id"] == loop["id"] for r in updates)
+    want = {"fused": 1} if fused == "on" else {}
+    assert all(r["counts"] == want for r in updates)
+    in_loop = [r for r in by_name["plm.value_grad"]
+               if r["parent"] == loop["id"]]
+    assert len(in_loop) == cfg.max_iter
+
+
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_adam_fit_traced_is_bitwise_untraced(fused):
+    codes, w, q = _adam_problem()
+    cfg = _adam_cfg(fused)
+    plain = ops_plm.fit_plm(codes, w, q, cfg, device="cpu")
+    with torch.profiler.profile(activities=CPU):
+        traced = ops_plm.fit_plm(codes, w, q, cfg, device="cpu")
+    assert np.array_equal(plain.J_ij, traced.J_ij)
+    assert np.array_equal(plain.h_i, traced.h_i)
+    assert plain.final_loss == traced.final_loss
+    for a, b in zip(plain.iteration_table, traced.iteration_table):
+        assert [a[k] for k in ("fx", "gnorm", "xnorm")] == [
+            b[k] for k in ("fx", "gnorm", "xnorm")]
+
+
+def test_annotate_is_a_span():
+    tracing.clear_spans()
+    with torch.profiler.profile(activities=CPU):
+        with tracing.annotate("region"):
+            pass
+    (rec,) = tracing.span_records()
+    assert rec["name"] == "region" and rec["parent"] is None
+
+
+class _Event:
+    """A profiler event of a made-up trace."""
+
+    def __init__(self, name, start, duration, device=True):
+        self._name, self._start, self._duration = name, start, duration
+        self._device = (torch.autograd.DeviceType.CUDA if device
+                        else torch.autograd.DeviceType.CPU)
+
+    def name(self):
+        return self._name
+
+    def start_ns(self):
+        return self._start
+
+    def duration_ns(self):
+        return self._duration
+
+    def device_type(self):
+        return self._device
+
+
+class _Trace:
+    def __init__(self, events):
+        self.events = events
+
+    def stop(self):
+        pass
+
+    def summary(self, lo_ns, hi_ns):
+        return {"busy_s": 1.0, "window_s": 2.0}
+
+
+def test_production_readers_arithmetic(monkeypatch):
+    """The production cell's K2 roofline and fused share, read from a
+    made-up trace and made-up span records: K2's launches and device time
+    are summed inside the window alone (clipped at its ends; host events,
+    other kernels and K3 left out), and the share counts the fused
+    adam.update spans of the counted fits' loops."""
+    import types
+
+    from bench_port import adam_readers, harness
+    from bench_port.runners import fit_adam
+
+    win = fit_adam.K2Window.__new__(fit_adam.K2Window)
+    win.device, win.cuda, win.seconds = torch.device("cpu"), False, 1.0
+    win.t0_ns, win.t_end_ns, win.t_end, win.t0 = 1000, 5000, 3.0, 1.0
+    k2 = adam_readers.K2_KERNEL
+    win.tracer = _Trace([
+        _Event(k2, 500, 1000),              # clipped to 500 ns
+        _Event(k2, 2000, 1000),
+        _Event(k2 + "_0d1d2d", 4500, 1000),  # clipped to 500 ns
+        _Event(k2, 6000, 1000),             # after the window
+        _Event("_adam_update_presym_kernel", 2000, 1000),
+        _Event("sm90_xmma_gemm", 2000, 1000),
+        _Event(k2, 2000, 1000, device=False)])
+    window, trace, _ = win.close(1, "fit")
+    assert (window, trace["busy_s"]) == (2.0, 1.0)
+    assert win.k2_launches == 3 and win.k2_device_s == 2000 / 1e9
+
+    cfg = {"L": 160, "q": 21}
+    assert adam_readers.k2_least_bytes(160, 21) == 3360 ** 2 * 30
+    peaks = {"hbm_bytes_per_s": 3.35e12}
+    ctx = types.SimpleNamespace(
+        cell=types.SimpleNamespace(config=cfg, control=False),
+        outcome=harness.Outcome(e2e={}, counters={
+            "k2_device_s": 0.2, "k2_launches": 1000, "fit_s": [1.0, 1.0]},
+            attempted=2, failed=0, memory_peak_bytes=0),
+        peaks=peaks)
+    want = 100.0 * 1000 * 3360 ** 2 * 30 / 3.35e12 / 0.2
+    assert adam_readers.k2_roofline(ctx) == pytest.approx(want)
+    assert adam_readers.k2_roofline(types.SimpleNamespace(
+        cell=ctx.cell, outcome=harness.Outcome({}, {}, 0, 0, 0),
+        peaks=peaks)) is None
+
+    def rec(id_, name, parent, root, counts=None, start=0):
+        return {"id": id_, "name": name, "parent": parent, "root": root,
+                "start_ns": start, "end_ns": start + 1, "error": False,
+                "counts": counts or {}}
+
+    records = [rec(1, "fit", None, 1, start=0), rec(2, "fit.loop", 1, 1),
+               rec(3, "adam.update", 2, 1, {"fused": 1}),
+               rec(4, "adam.update", 2, 1, {"fused": 1}),
+               rec(5, "fit", None, 5, start=10), rec(6, "fit.loop", 5, 5),
+               rec(7, "adam.update", 6, 5, {"fused": 1}),
+               rec(8, "adam.update", 6, 5),
+               rec(9, "fit.finish", 5, 5),
+               rec(10, "adam.update", 9, 5),     # outside the loop
+               rec(11, "fit", None, 11, start=20),  # not counted
+               rec(12, "fit.loop", 11, 11),
+               rec(13, "adam.update", 12, 11)]
+    monkeypatch.setattr(tracing, "span_records", lambda: records)
+    assert adam_readers.adam_fused_share(ctx) == pytest.approx(75.0)
+    monkeypatch.setattr(tracing, "span_records",
+                        lambda: [r for r in records
+                                 if r["name"] != "adam.update"])
+    assert adam_readers.adam_fused_share(ctx) is None
