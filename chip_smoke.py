@@ -7,7 +7,9 @@ Smoke run of the PyTorch/CUDA port (evcouplings_torch) on one NVIDIA GPU.
 Builds every kernel from the sources in this checkout, holds each kernel
 against its plain version on the card (K5, the bf16-limb product of the
 precision names "high" and "default", in every form at limbs 1 and 2 and
-against float64 too: phase 3c), reproduces the golden parity fit,
+against float64 too: phase 3c; K6, the bf16 block epilogue, against
+float64 and timed at the production block beside its plain version and
+its byte bound: phase 3d), reproduces the golden parity fit,
 then drives the port's main paths at the full width of the repository's
 headline shape (N=16384 sequences, L=160 sites, q=21): run_plm (the
 in-process plmc replacement) in parity, production and balanced mode
@@ -86,6 +88,10 @@ in N fresh processes, on the card and on the host, every call twice in a
 row, names the side whose two results differed, and times the card's DI
 at L=500 (ROADMAP C14); `torch` puts torch's CPU exp and log back on the
 host, as before the repair.
+
+    python3 chip_smoke.py --k6
+
+runs phase 3d alone.
 """
 
 import json
@@ -4211,6 +4217,113 @@ def phase3c_limb_mm(rng, dev, shapes=(("main", 160, 512, 512, 2048),
                if k.startswith(("main", "deep"))})
 
 
+def phase3d_block_epilogue(dev, B=8192, L=160, q=21, reps=20):
+    """K6 (kernels/block_epilogue.py) at the production fit's row block
+    (8192 rows, L = 160, q = 21: Lq 3360) on synthetic bf16 logits and
+    codes (gaps, padding rows): within one bf16 ulp of its formula in
+    float64 on every residual and 1e-6 on every row's term, bitwise
+    repeatable; then its device time against its byte bound and against
+    the plain route it replaced on the card (block_epilogue_plain and the
+    store of its residual into the two-phase layout's rows). Returns the
+    kernel table's row."""
+    import torch
+
+    from evcouplings_torch.kernels import block_epilogue as k6
+    from evcouplings_torch.ops.encode import one_hot
+
+    rng = np.random.default_rng(SEED + 6)
+    lq = L * q
+    codes_np = synthetic_codes(rng, B, L, q, families=64, mutate=0.15,
+                               gap_rows=0.1, missing_rows=0.1)
+    codes_np[-5:] = -1
+    w_np = rng.uniform(0.1, 1.0, B).astype(np.float32)
+    w_np[-5:] = 0.0
+    codes = torch.as_tensor(codes_np, device=dev)
+    w = torch.as_tensor(w_np, device=dev)
+    logits = torch.as_tensor(rng.normal(size=(B, lq)).astype(np.float32),
+                             device=dev).to(torch.bfloat16)
+    store = torch.empty((2 * B, lq), dtype=torch.bfloat16, device=dev)
+    terms = torch.empty((2 * B,), device=dev)
+
+    def kernel():
+        k6.block_epilogue(logits, codes, w, q, store[B:], terms[B:])
+
+    t = time.perf_counter()
+    kernel()
+    torch.cuda.synchronize()
+    log("phase 3d build (nvcc) + first launch: {:.1f} s".format(
+        time.perf_counter() - t))
+    r, t1 = store[B:].clone(), terms[B:].clone()
+    kernel()
+    torch.cuda.synchronize()
+    assert torch.equal(r, store[B:]) and torch.equal(t1, terms[B:])
+
+    # the formula in float64
+    x = logits.double()
+    rowmax = x.amax(dim=1, keepdim=True)
+    e = torch.exp(torch.clamp(x - rowmax, min=k6.SOFTMAX_SHIFT_FLOOR))
+    Z = e.reshape(B, L, q).sum(dim=2)
+    m = codes >= 0
+    oh = one_hot(codes, q, dtype=torch.float64)
+    x_obs = (x.reshape(B, L, q) * oh).sum(dim=2)
+    t64 = w.double() * torch.where(m, x_obs - rowmax - torch.log(Z),
+                                   0.0).sum(dim=1)
+    r64 = (w.double()[:, None, None] * (e.reshape(B, L, q) * torch.where(
+        m, 1.0 / Z, 0.0)[:, :, None] - oh)).reshape(B, lq)
+    ulp = torch.exp2(torch.floor(torch.log2(r64.abs().clamp_min(
+        torch.finfo(torch.float32).tiny))) - 7)
+    ulps = float(((r.double() - r64).abs() / ulp).max())
+    rel = float(((t1.double() - t64).abs() / t64.abs().clamp_min(
+        1e-300)).max())
+    assert ulps <= 1.0 and rel <= 1e-6, (ulps, rel)
+
+    oh_b = oh.to(torch.bfloat16).reshape(B, lq)
+    w_b = w.to(torch.bfloat16)
+
+    def plain():
+        _, r_plain = k6.block_epilogue_plain(logits, oh_b, codes, w_b, L, q,
+                                             torch.float32)
+        store[:B] = r_plain
+
+    plain()
+    ms = cuda_ms(kernel, reps)
+    plain_ms = cuda_ms(plain, 5)
+    # each input read once (the bf16 logits, the int8 codes, the float32
+    # weights), each output written once (the bf16 residual, the float32
+    # terms)
+    nbytes = B * lq * 2 * 2 + B * L + B * 4 * 2
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log("phase 3d K6 B={} L={} q={}: largest error {:.3f} bf16 ulp "
+        "(residual), {:.2e} relative (row terms), bitwise repeatable; "
+        "kernel {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({:.1f} MB), "
+        "{:.1f}% of the bound".format(B, L, q, ulps, rel, ms, plain_ms,
+                                      bound, nbytes / 1e6,
+                                      100.0 * bound / ms))
+    return dict(
+        name="K6 bf16 block epilogue (softmax, per-site sums, residual)",
+        route="cuda", source="evcouplings_torch/csrc/block_epilogue.cu",
+        replaces="none (XLA fuses the JAX package's epilogue)",
+        max_ulps=ulps, max_rel_terms=rel, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by="bytes", library_ms=None)
+
+
+def k6_alone():
+    """`python3 chip_smoke.py --k6`: phase 3d alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log("phase 3d device:", smi.splitlines()[0])
+    log(json.dumps({"K6": phase3d_block_epilogue(torch.device("cuda"))}))
+    return 0
+
+
 def run_job(config):
     """One pipeline job through execute_wrapped, its kernel launches
     counted from zero, and its final state; every file the final outcfg
@@ -4265,8 +4378,8 @@ def main():
 
     # ---- phase 1: build every native source, one compiler each, at once
     t = time.perf_counter()
-    _build.build_all(["reweight", "seqdot", "limb_mm", "seqdot_host",
-                      "fasta_io", "stockholm_io"])
+    _build.build_all(["reweight", "seqdot", "limb_mm", "block_epilogue",
+                      "seqdot_host", "fasta_io", "stockholm_io"])
     log("phase 1 build: {:.1f} s (nvcc/cc, in parallel)".format(
         time.perf_counter() - t))
     rng = np.random.default_rng(SEED)
@@ -4449,6 +4562,9 @@ def main():
     t = time.perf_counter()
     rows["K5"] = phase3c_limb_mm(np.random.default_rng(SEED + 3), dev)
     log("phase 3c took {:.1f} s".format(time.perf_counter() - t))
+
+    # ---- phase 3d: K6 against float64, timed at the production block
+    k6_row = phase3d_block_epilogue(dev)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
 
@@ -4944,7 +5060,7 @@ def main():
     for item in sorted(not_produced):
         log("phase 6 not produced:", item)
     log(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4",
-                                                  "K5")]}))
+                                                  "K5")] + [k6_row]}))
     log(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4967,4 +5083,6 @@ if __name__ == "__main__":
         sys.exit(phase5c_worker(*sys.argv[2:]))
     if sys.argv[1:2] == ["--peak-memory"]:
         sys.exit(peak_memory_sweep())
+    if sys.argv[1:2] == ["--k6"]:
+        sys.exit(k6_alone())
     sys.exit(main())

@@ -46,8 +46,12 @@ sums and the weighted sums are float32 reductions at every precision.
 dtype "bfloat16" is the production mode: bf16 operands, with float32
 outputs on the gradient products (torch.mm(..., out_dtype=float32) on the
 card; the CPU upcasts the operands instead), while the logits product
-keeps the compute dtype. Master parameters, optimizer moments and
-weights stay float32.
+keeps the compute dtype. On a CUDA device each bf16 row block's softmax,
+per-site sums, NLL terms and residual are one launch of K6
+(kernels/block_epilogue.py), in float32 with one bf16 rounding, at the
+residual's store; elsewhere they are the plain PyTorch chain
+(block_epilogue_plain), which rounds each step to the compute dtype.
+Master parameters, optimizer moments and weights stay float32.
 
 Solvers: "lbfgs" (ops/lbfgs.py), "adam" (the optax.adam formula; with
 fused_update="on", and "auto" on a CUDA device, the epilogue of each step
@@ -75,6 +79,9 @@ import torch
 from evcouplings_torch import parallel
 from evcouplings_torch._device import (
     matmul_precision, precision_limbs, resolve_device,
+)
+from evcouplings_torch.kernels.block_epilogue import (
+    block_epilogue, block_epilogue_plain, fuses_epilogue,
 )
 from evcouplings_torch.kernels.limb_mm import (
     Split, is_limbs, limb_mm, split_limbs as _split_limbs,
@@ -134,14 +141,6 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
     "float64": torch.float64,
 }
-
-# lower clamp on (logits - rowmax) before exp. The shift is the whole
-# row's max, so a site whose logits all sit far below it could underflow
-# its whole q-segment to zero (Z = 0 -> inf residuals). exp(-80) is a
-# normal number in f32 and bf16, so Z >= q exp(-80) > 0; for any site
-# within ~80 nats of the row max the clamp only touches lanes below f32
-# resolution.
-_SOFTMAX_SHIFT_FLOOR = -80.0
 
 # memory budget for the static augmented one-hot of the two-phase
 # layout (the residual buffer is the same size again)
@@ -291,35 +290,40 @@ def _build_j_aug(params, L, q, dtype, lq_aug, symmetric=False):
 
 
 def _block_nll_residual(J_aug, oh_aug, c, w, L, q, acc):
-    """(block NLL contribution, residual r) for one row block.
+    """(block NLL contribution, residual r) for one row block by the plain
+    route (block_epilogue_plain after the logits product).
 
     J_aug: the augmented couplings, or a Split of them (_limb_operand);
     oh_aug: (B, Lq_aug) augmented one-hot of codes c (bf16 beside limbs);
-    w already in the compute dtype. The per-site softmax sums are
-    reductions over each site's q lanes (the JAX package takes them as
-    products against a 0/1 segment matrix; the sums are the same)."""
-    lq = L * q
-    B = oh_aug.shape[0]
-    oh = oh_aug[:, :lq]
-
+    w already in the compute dtype."""
     logits = _mm(oh_aug, J_aug, w.dtype)
-    rowmax = logits.amax(dim=1, keepdim=True)
-    e = torch.exp(torch.clamp(logits - rowmax, min=_SOFTMAX_SHIFT_FLOOR))
-    Z = e.reshape(B, L, q).sum(dim=2, dtype=acc)
+    return block_epilogue_plain(logits, oh_aug[:, :L * q], c, w, L, q, acc)
 
-    # sum_r log P(x_sr|..) = sum_r [logit_obs - rowmax - log Z_r], with
-    # m zeroing gap / padding positions
-    m_acc = (c >= 0).to(acc)
-    obs = (oh * logits).sum(dim=1).to(acc)
-    logZ = ((torch.log(Z) + rowmax.to(acc)) * m_acc).sum(dim=1)
-    nll_b = -torch.dot(w.to(acc), obs - logZ)
 
-    # r = w * (softmax * m - oh), each site's factor broadcast over its q
-    # lanes
-    rz = (m_acc / Z).to(logits.dtype)
-    bcast = rz[:, :, None].expand(B, L, q).reshape(B, lq)
-    r = w[:, None] * (e * bcast - oh)
-    return nll_b, r
+class _FusedEpilogue:
+    """The K6 route of one evaluation's row blocks (kernels/block_epilogue,
+    taken where fuses_epilogue holds: bf16 compute on a CUDA device):
+    block() takes a block's logits product and launches K6 on it, which
+    writes the block's residual into the caller's rows `r` and its rows'
+    weighted terms into one float32 vector over all rows; nll() sums that
+    vector once, in a fixed order, into the evaluation's NLL. Adds the
+    count `epilogue_fused` to the open plm.value_grad span."""
+
+    def __init__(self, codes, weights, q):
+        add_counts(epilogue_fused=1)
+        self.codes = codes.to(torch.int8)
+        self.weights = weights.to(torch.float32)
+        self.q = q
+        self.terms = torch.empty((codes.shape[0],), dtype=torch.float32,
+                                 device=codes.device)
+
+    def block(self, J_op, oh_aug, rows, r):
+        block_epilogue(_mm(oh_aug, J_op, torch.bfloat16), self.codes[rows],
+                       self.weights[rows], self.q, r, self.terms[rows])
+        return r
+
+    def nll(self):
+        return -self.terms.sum()
 
 
 def _check_rows(n_pad, block_size):
@@ -342,14 +346,22 @@ def _local_vg_carried(J_aug, codes, weights, L, q, block_size, acc,
     nll = torch.zeros((), dtype=acc, device=device)
     dJh = torch.zeros((lq, J_aug.shape[0]), dtype=acc, device=device)
     J_op = _limb_operand(J_aug, limbs)
+    fused = None
+    if fuses_epilogue(dtype, device):
+        fused = _FusedEpilogue(codes, weights, q)
+        r_block = torch.empty((block_size, lq), dtype=dtype, device=device)
     for start in range(0, n_pad, block_size):
-        c = codes[start:start + block_size]
-        w = weights[start:start + block_size].to(dtype)
+        rows = slice(start, start + block_size)
+        c = codes[rows]
         oh_aug = build_augmented_onehot(c, q, oh_dtype)
-        nll_b, r = _block_nll_residual(J_op, oh_aug, c, w, L, q, acc)
-        nll = nll + nll_b
+        if fused is None:
+            nll_b, r = _block_nll_residual(J_op, oh_aug, c,
+                                           weights[rows].to(dtype), L, q, acc)
+            nll = nll + nll_b
+        else:
+            r = fused.block(J_op, oh_aug, rows, r_block)
         _mm(_limb_operand(r.T, limbs), oh_aug, acc, into=dJh)
-    return nll, dJh
+    return (nll if fused is None else fused.nll()), dJh
 
 
 def _local_vg_two_phase(J_aug, codes, weights, oh_all, L, q, block_size,
@@ -361,12 +373,20 @@ def _local_vg_two_phase(J_aug, codes, weights, oh_all, L, q, block_size,
     nll = torch.zeros((), dtype=acc, device=J_aug.device)
     r_all = _residual_store(n_pad, lq, dtype, limbs, J_aug.device)
     J_op = _limb_operand(J_aug, limbs)
+    fused = (_FusedEpilogue(codes, weights, q)
+             if fuses_epilogue(dtype, J_aug.device) else None)
     for start in range(0, n_pad, block_size):
         sl = slice(start, start + block_size)
+        if fused is not None:
+            # K6 writes the block's residual into its rows of r_all
+            fused.block(J_op, oh_all[sl], sl, r_all[sl])
+            continue
         nll_b, r = _block_nll_residual(
             J_op, oh_all[sl], codes[sl], weights[sl].to(dtype), L, q, acc)
         _store_rows(r_all, sl, r)
         nll = nll + nll_b
+    if fused is not None:
+        nll = fused.nll()
     return nll, _mm(_transpose(r_all), oh_all, acc)
 
 
@@ -415,8 +435,9 @@ _PEAK_ARRAYS = {   # (fit, solver): (arrays, arrays per history pair)
     ("asymmetric", "adam"): (9, 0),
 }
 # (block, width) temporaries of the compute dtype one row block of the
-# value+grad pass holds at once (logits, their exponentials, the
-# residual and its factors)
+# value+grad pass holds at once on the plain route (logits, their
+# exponentials, the residual and its factors); K6's route holds the
+# logits alone, and the estimate keeps the plain route's count for both
 _BLOCK_TEMPORARIES = 5
 # what the limb route ("high"/"default" with float32 compute on a CUDA
 # device) adds: K5 splits its float32 operand as it loads it and adds the
@@ -900,9 +921,10 @@ class _ValueGradGraph:
     values as an eager evaluation, so it gives the same bits, and returns
     copies of the graph's outputs: the solver keeps a value and gradient
     across evaluations, which the next replay would overwrite. Each call
-    is one "plm.value_grad" span with the count `replayed`, and adds the
-    K5 launches of the capture to limb_mm.launches, as an eager
-    evaluation does. The capture launches nothing; take it after an eager
+    is one "plm.value_grad" span with the count `replayed` (and
+    `epilogue_fused` where the capture took K6), and adds the K5 and K6
+    launches of the capture to their counts, as an eager evaluation
+    does. The capture launches nothing; take it after an eager
     evaluation of the same fit, which loads the kernels' libraries and
     cuBLAS's handle. release() frees the graph and, with its outputs,
     its pool."""
@@ -915,7 +937,7 @@ class _ValueGradGraph:
         self.rows = rows
         self.x = x.clone()
         self.graph = torch.cuda.CUDAGraph()
-        launches = limb_mm.launches
+        launches = limb_mm.launches, block_epilogue.launches
         stream.wait_stream(torch.cuda.current_stream(device))
         with span("plm.graph_capture"), torch.cuda.stream(stream):
             self.graph.capture_begin(capture_error_mode="thread_local")
@@ -924,8 +946,9 @@ class _ValueGradGraph:
             finally:
                 self.graph.capture_end()
         torch.cuda.current_stream(device).wait_stream(stream)
-        self.k5_launches = limb_mm.launches - launches
-        limb_mm.launches = launches
+        self.k5_launches = limb_mm.launches - launches[0]
+        self.k6_launches = block_epilogue.launches - launches[1]
+        limb_mm.launches, block_epilogue.launches = launches
 
     def __call__(self, x, *rows):
         if len(rows) != len(self.rows) or any(
@@ -934,9 +957,12 @@ class _ValueGradGraph:
                              "was captured with")
         with span("plm.value_grad"):
             add_counts(replayed=1)
+            if self.k6_launches:
+                add_counts(epilogue_fused=1)
             self.x.copy_(x)
             self.graph.replay()
             limb_mm.launches += self.k5_launches
+            block_epilogue.launches += self.k6_launches
             return self.value.clone(), self.grad.clone()
 
     def release(self):

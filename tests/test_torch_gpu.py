@@ -542,3 +542,88 @@ def test_k5_refuses_layouts_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         k_limb.limb_mm(k_limb.Split(r.T, 2), oh.float())
     assert k_limb.limb_mm.launches == before
+
+
+# (B, L, q): the production block (8192 rows, L = 160, q = 21), and one
+# of each of K6's other instantiations: q = 21 with rows of 147 logits,
+# not 16-byte aligned; a runtime q with rows of 35; a runtime q with
+# 16-byte rows
+K6_SHAPES = [(8192, 160, 21), (129, 7, 21), (37, 7, 5), (300, 70, 32)]
+
+
+@pytest.mark.parametrize("B,L,q", K6_SHAPES)
+def test_k6_matches_float64_and_is_bitwise_repeatable(cuda, B, L, q):
+    """K6 against K6's formula in float64 from the same bf16 logits,
+    codes and weights (gaps, an all-gap row, zero-weight padding rows, a
+    site 120 nats below its row's max, past the clamp): each residual
+    within one bf16 ulp of the float64 value; no farther from it than the
+    plain route's residual, element for element, except where the
+    float64 value lies within float32 rounding of a tie between two bf16
+    values (K6 rounds a float32 value there); the rows' terms and the
+    block's NLL within 1e-6 relative; a second launch the same bits."""
+    import epilogue_fixtures as efx
+    from evcouplings_torch.kernels import block_epilogue as k6
+    from evcouplings_torch.ops.encode import one_hot
+
+    logits, codes, w = (t.to(cuda) for t in efx.epilogue_problem(
+        B + L, B, L, q))
+    lq = L * q
+    # the residual lands in rows of a larger store, as in the fit
+    store = torch.full((B + 16, lq), float("nan"), dtype=torch.bfloat16,
+                       device=cuda)
+    terms = torch.full((B + 4,), float("nan"), device=cuda)
+    before = k6.block_epilogue.launches
+    k6.block_epilogue(logits, codes, w, q, store[8:8 + B], terms[2:2 + B])
+    r2 = torch.empty((B, lq), dtype=torch.bfloat16, device=cuda)
+    t2 = torch.empty((B,), device=cuda)
+    k6.block_epilogue(logits, codes, w, q, r2, t2)
+    oh = one_hot(codes, q, dtype=torch.bfloat16).reshape(B, lq)
+    nll_plain, r_plain = k6.block_epilogue_plain(
+        logits, oh, codes, w.to(torch.bfloat16), L, q, torch.float32)
+    torch.cuda.synchronize()
+    assert k6.block_epilogue.launches == before + 2
+    r = store[8:8 + B]
+    assert torch.equal(r, r2) and torch.equal(terms[2:2 + B], t2)
+    assert store[:8].isnan().all() and store[8 + B:].isnan().all()
+    assert terms[:2].isnan().all() and terms[2 + B:].isnan().all()
+
+    r64, t64 = efx.epilogue_f64(logits, codes, w, q)
+    err = np.abs(r.double().cpu().numpy() - r64)
+    err_plain = np.abs(r_plain.double().cpu().numpy() - r64)
+    ulp = efx.bf16_ulp(r64)
+    assert (err <= ulp).all(), float((err / ulp).max())
+    tie = 0.5 * ulp + 2.0 ** -16 * np.abs(r64)
+    assert (err <= np.maximum(err_plain, tie)).all()
+    assert err.max() <= err_plain.max() and err.sum() <= err_plain.sum()
+    got = t2.double().cpu().numpy()
+    assert (np.abs(got - t64) <= 1e-6 * np.abs(t64)).all(), float(
+        np.abs(got - t64).max())
+    nll = float(-t2.sum())
+    assert abs(nll - (-t64.sum())) <= 1e-6 * abs(t64.sum())
+    # the plain route's NLL, its observed logits summed in bf16, is the
+    # farther one
+    assert abs(nll + t64.sum()) <= abs(float(nll_plain) + t64.sum())
+    # gaps and padding rows: no residual, no term
+    assert not r[1].any() and not r[-3:].any()
+    assert not t2[1].any() and not t2[-3:].any()
+
+
+def test_k6_refuses_what_it_does_not_take(cuda):
+    """On CUDA tensors the wrapper launches K6 or raises, counting no
+    launch: float32 logits, int64 codes, bf16 weights, a residual with a
+    column stride."""
+    import epilogue_fixtures as efx
+    from evcouplings_torch.kernels import block_epilogue as k6
+
+    logits, codes, w = (t.to(cuda) for t in efx.epilogue_problem(0, 16, 6,
+                                                                  5))
+    r = torch.empty_like(logits)
+    t = torch.empty((16,), device=cuda)
+    before = k6.block_epilogue.launches
+    for args in ((logits.float(), codes, w, 5, r, t),
+                 (logits, codes.long(), w, 5, r, t),
+                 (logits, codes, w.to(torch.bfloat16), 5, r, t),
+                 (logits, codes, w, 5, r.T.contiguous().T, t)):
+        with pytest.raises(ValueError):
+            k6.block_epilogue(*args)
+    assert k6.block_epilogue.launches == before

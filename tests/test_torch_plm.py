@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from evcouplings_torch.kernels.block_epilogue import block_epilogue
 from evcouplings_torch.kernels.limb_mm import limb_mm
 from evcouplings_torch.ops import plm as tp
 
@@ -343,9 +344,13 @@ def _card_fit_problem(seed=3, N=1500, L=40, q=21):
     return codes.astype(np.int8), rng.random(N) + 0.2, q
 
 
+def _launches():
+    return limb_mm.launches, block_epilogue.launches
+
+
 class _CheckedGraph(tp._ValueGradGraph):
     """The fit's graph, each replay held to an eager evaluation at the same
-    x: the same value and gradient bits, and as many K5 launches."""
+    x: the same value and gradient bits, and as many K5 and K6 launches."""
 
     def __init__(self, vg_flat, x, rows):
         super().__init__(vg_flat, x, rows)
@@ -353,12 +358,12 @@ class _CheckedGraph(tp._ValueGradGraph):
         self.replays = []
 
     def __call__(self, x, *rows):
-        before = limb_mm.launches
+        before = _launches()
         value, grad = super().__call__(x, *rows)
-        replayed = limb_mm.launches - before
-        before = limb_mm.launches
+        replayed = [b - a for a, b in zip(before, _launches())]
+        before = _launches()
         v, g = self.eager(x, *rows)
-        assert limb_mm.launches - before == replayed
+        assert [b - a for a, b in zip(before, _launches())] == replayed
         assert torch.equal(value, v) and torch.equal(grad, g)
         # every replay reads its own x (no stale static buffer), and what
         # a replay returned is the caller's (the next one leaves it)
@@ -398,6 +403,36 @@ def test_replayed_value_grad_is_the_eager_bits(cuda, monkeypatch, precision,
     assert graph.k5_launches == (0 if precision == "highest" else
                                  (2 * 3 if layout == "carried" else 3 + 1))
     # the fit released its graph
+    assert graph.x is None and graph.grad is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["carried", "two_phase"])
+def test_replayed_bf16_value_grad_is_the_eager_bits(cuda, monkeypatch,
+                                                    layout):
+    """A bf16 LBFGS fit captures its value+grad with K6 in it, one launch
+    per row block: every replay gives the eager evaluation's value and
+    gradient bits at its x, with as many K6 launches."""
+    made = []
+
+    def checked(*args):
+        made.append(_CheckedGraph(*args))
+        return made[-1]
+
+    monkeypatch.setattr(tp, "_ValueGradGraph", checked)
+    codes, w, q = _card_fit_problem(seed=5)
+    cfg = tp.PlmConfig(max_iter=5, conv_tol=0.0, dtype="bfloat16",
+                       grad_layout=layout, lambda_J=0.01 * (q - 1) * 39)
+    before = block_epilogue.launches
+    res = tp.fit_plm(codes, w, q, cfg, device=cuda)
+    (graph,) = made
+    assert len(res.iteration_table) == 5
+    assert len(graph.replays) >= 5
+    assert graph.k5_launches == 0 and graph.k6_launches == 3
+    # the eager first evaluation, and one eager twin per replay besides
+    # the replays' own
+    assert block_epilogue.launches - before == 3 * (1 + 2 * len(
+        graph.replays))
     assert graph.x is None and graph.grad is None
 
 
