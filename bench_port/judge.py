@@ -45,9 +45,16 @@ def judge_fit(checks, config, plm, answer, iterations, conv_tol):
     - fx_final_gap: how far the program's last f lies above the
       reference's where the reference stopped, relative (a fit that stops
       early reads its shortfall here);
-    - fx_at_x, gnorm_at_x: the relative gap between the last recorded f
-      and |g| and the reference's at the returned parameters, |g| taken
-      with the solver's dot;
+    - fx_at_x: the relative gap between the last recorded f and the
+      reference's at the returned parameters;
+    - gnorm_at_x: the gap between the last recorded |g| and the
+      reference's at the returned parameters, |g| taken with the solver's
+      dot, over the reference's |g| there where conv_tol is 0 (the fit
+      runs all its iterations). A fit given a conv_tol runs until its
+      float32 line search can lower f no further, where the |g| left is so
+      small that float32's rounding of the gradient is a large share of
+      it: there the gap is taken over the reference's |g| at the fit's
+      start (x = 0), and the relative gap is offered as gnorm_rel_at_x;
     - x_gap and xnorm_gap: by the worst leaf (couplings P, fields h),
       |leaf - leaf_ref| / |leaf_ref| and | |leaf| - |leaf_ref| | / |leaf_ref|,
       against the reference's iterate after as many iterations as the
@@ -71,9 +78,15 @@ def judge_fit(checks, config, plm, answer, iterations, conv_tol):
     value, grad = plm.value_grad(xt)
     value = float(value)
     gnorm = float(torch.sqrt(dot(grad, grad)))
+    scale = gnorm
+    if conv_tol:
+        _, grad0 = plm.value_grad(torch.zeros_like(xt))
+        scale = float(torch.sqrt(dot(grad0, grad0)))
     if rows:
         checks.add("fx_at_x", abs(rows[-1][0] - value) / abs(value))
-        checks.add("gnorm_at_x", abs(rows[-1][1] - gnorm) / gnorm)
+        checks.add("gnorm_at_x", abs(rows[-1][1] - gnorm) / scale)
+        if conv_tol:
+            checks.add("gnorm_rel_at_x", abs(rows[-1][1] - gnorm) / gnorm)
     else:
         checks.add("fx_at_x", float("inf"))
         checks.add("gnorm_at_x", float("inf"))

@@ -7,11 +7,12 @@ number a runner offers is read, whether or not the cell compares it.
 
     python3 bench_port/readings.py --workload <cell> --seconds <s> \
         [--control-seconds <s>] [--seeds 12] [--control-seeds 3] \
-        [--first-seed N] [--fault NAME]
+        [--first-seed N] [--also-seeds N,N,...] [--fault NAME]
 
 --control-seconds gives the control's runs a window of their own, where
 the control (a reference fit, which no deadline interrupts) takes longer
-than the program.
+than the program. --also-seeds adds seeds on record (a run that failed
+elsewhere) to the program's.
 
 --fault plants one of bench_port/tests/faults.py's faults in the program
 for the program's runs. Prints one JSON line per run ({"seed", "control",
@@ -50,6 +51,7 @@ def main(argv=None):
     p.add_argument("--seeds", type=int, default=12)
     p.add_argument("--control-seeds", type=int, default=3)
     p.add_argument("--first-seed", type=int, default=2 ** 31 + 1000)
+    p.add_argument("--also-seeds", default="")
     p.add_argument("--fault")
     args = p.parse_args(argv)
 
@@ -69,7 +71,9 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     print("card: {}".format(run.card_identity()), flush=True)
     worst, fewest, least = {}, {}, {}
+    also = [int(s) for s in args.also_seeds.split(",") if s]
     runs = ([(args.first_seed + k, False) for k in range(args.seeds)]
+            + [(seed, False) for seed in also]
             + [(args.first_seed + k, True) for k in range(args.control_seeds)])
     for seed, control in runs:
         t = time.perf_counter()

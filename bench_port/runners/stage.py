@@ -106,9 +106,15 @@ def judge_family(cell, checks, codes, match, res, ec, model, iterations,
 
 
 def run(cell):
+    # the run's files in a directory of its own under TMPDIR: runs in other
+    # processes (test workers, readings beside a run) write families of the
+    # same names
+    with tempfile.TemporaryDirectory(prefix="bench_port_stage_") as out:
+        return _run(cell, Path(out))
+
+
+def _run(cell, out):
     t = cell.traffic
-    out = Path(tempfile.gettempdir()) / "bench_port_stage"
-    out.mkdir(parents=True, exist_ok=True)
     families = write_families(cell, out)
     iters, tol = t["iterations"], t["conv_tol"]
     # the control: the program at the configuration's lower precision name

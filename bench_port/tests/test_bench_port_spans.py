@@ -22,7 +22,7 @@ def _span_metrics(reg, cell):
             == "bench_port.program_spans"]
 
 
-@pytest.mark.parametrize("cell,n", [("tiny.fit", 8), ("tiny.stage", 7)])
+@pytest.mark.parametrize("cell,n", [("tiny.fit", 9), ("tiny.stage", 7)])
 def test_every_reader_reads_a_traced_run(tmp_path, cell, n):
     reg = tiny_registry(tmp_path)
     names = _span_metrics(reg, cell)

@@ -17,7 +17,7 @@ FIT_LIMITS = {"counts_mismatch": 0, "iterations_mismatch": 0,
               "x_gap": 3e-5}
 STAGE_LIMITS = {"weights_mismatch": 0, "neff_mismatch": 0, "freq_gap": 1e-6,
                 "fx_final_gap": 4e-4, "fx_path": 4e-4, "fx_at_x": 1e-6,
-                "gnorm_at_x": 2e-4, "x_gap": 1e-4, "ec_gap": 1e-6,
+                "gnorm_at_x": 2e-6, "x_gap": 1e-4, "ec_gap": 1e-6,
                 "ec_rank_inversions": 0}
 
 
