@@ -1152,7 +1152,7 @@ def headline(shapes, device):
 
 def bench_lbfgs(shapes, device):
     """Secondary (--all): ms per iteration of the native LBFGS through
-    fit_plm at float32, "default" (one bf16 limb on the card: K5)."""
+    fit_plm at float32, "default" (one bf16 limb pass on the card)."""
     from evcouplings_torch.ops.plm import PlmConfig, fit_plm
 
     n = shapes.secondary_n
@@ -1201,7 +1201,8 @@ def bench_asym(shapes, device):
 
 def bench_asym_lbfgs(shapes, device):
     """Secondary (--all): ms per iteration of the batched per-site LBFGS
-    of the asymmetric fit (float32, "default": K5 on the card)."""
+    of the asymmetric fit (float32, "default": one bf16 limb pass on the
+    card)."""
     from evcouplings_torch.ops.plm import PlmConfig
     from evcouplings_torch.ops.plm_sites import fit_plm_asym
 

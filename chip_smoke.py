@@ -5,16 +5,14 @@ Smoke run of the PyTorch/CUDA port (evcouplings_torch) on one NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds every kernel from the sources in this checkout, holds each kernel
-against its plain version on the card (K5, the bf16-limb product of the
-precision names "high" and "default", in every form at limbs 1 and 2 and
-against float64 too: phase 3c; K6, the bf16 block epilogue, against
-float64 and timed at the production block beside its plain version and
-its byte bound: phase 3d), reproduces the golden parity fit,
+against its plain version on the card (K6, the bf16 block epilogue,
+against float64 and timed at the production block beside its plain
+version and its byte bound: phase 3d), reproduces the golden parity fit,
 then drives the port's main paths at the full width of the repository's
 headline shape (N=16384 sequences, L=160 sites, q=21): run_plm (the
 in-process plmc replacement) in parity, production and balanced mode
 (phase 5; the precision names against float64 in 5d, where "high" and
-"default" must launch K5 and no library GEMM),
+"default" must take their limb passes as the library's bf16 GEMMs),
 and the pipeline a user runs, execute_wrapped with stages align and
 couplings, then the mutate protocol (phase 6; card against host at a
 small size first). Phase 7 drives the couplings stage's other routes:
@@ -65,7 +63,7 @@ in the card's child with its LBFGS dots forced to K4's chain (the limbs'
 share), then runs monomer_pipeline.yml once more on the card at full
 width. Phase 15 runs bench_torch.py --all (the port's twin of bench.py) in
 this process at bench.py's shapes, its kernel launches counted over the
-whole run (K1 and K4 must launch, and K5 in its float32 LBFGS records),
+whole run (K1 and K4 must launch),
 checks and prints its records, then
 times K1 alone on its reweighting secondary's codes. Every phase
 raises on a mismatch; nothing is caught, except that a machine without
@@ -379,17 +377,15 @@ def runtime_seconds(state):
 # ---------------------------------------------------------------------------
 
 def kernel_counts():
-    """The launch counters of K1 to K5 (name -> wrapper)."""
+    """The launch counters of K1 to K4 (name -> wrapper)."""
     from evcouplings_torch.kernels import adam_update as k_adam
-    from evcouplings_torch.kernels import limb_mm as k_limb
     from evcouplings_torch.kernels import reweight as k_reweight
     from evcouplings_torch.kernels import seqdot as k_seqdot
 
     return {"K1": k_reweight.neighbor_counts,
             "K2": k_adam.fused_adam_update_cuda,
             "K3": k_adam.fused_adam_update_presym_cuda,
-            "K4": k_seqdot.sequential_dots,
-            "K5": k_limb.limb_mm}
+            "K4": k_seqdot.sequential_dots}
 
 
 def counted(fn):
@@ -682,17 +678,17 @@ def phase5d_precision(codes_np, q, lambda_J, reps=5, seed=SEED):
     passes: plain float32 products with the global TF32 flag set, which is
     set here only. "highest" and "high" must give the same bits with the
     global TF32 flag set and unset, and "high" must lie within 1e-5 of
-    float64. The names that take limbs must launch K5 (kernels/limb_mm)
-    and, under the profiler, no library GEMM: neither the logits nor the
-    gradient product takes a cuBLAS limb pass; the others launch no K5.
-    Returns {name: (logits err, dJh err, ms, busy ms, K5 launches)}."""
+    float64. Under the profiler, the names that take limbs must run their
+    one-hot products as library GEMMs (ops/plm._mm: one bf16 cuBLAS pass
+    per limb), none of them a GEMM that "highest" runs (its float32
+    products). Returns {name: (logits err, dJh err, ms, busy ms, library
+    GEMMs)}."""
     import torch
 
     import evcouplings_torch.ops.plm as tp
     from evcouplings_torch._device import (
         PRECISIONS, matmul_precision, precision_limbs,
     )
-    from evcouplings_torch.kernels import limb_mm as k_limb
 
     dev = torch.device("cuda")
     n, L = codes_np.shape
@@ -765,7 +761,6 @@ def phase5d_precision(codes_np, q, lambda_J, reps=5, seed=SEED):
         del Ja64
         for name in PRECISIONS + ("tf32",):
             tf32(name == "tf32")
-            k5_before = k_limb.limb_mm.launches
             logits, dJh, vg = evaluate(name)
             errs = [float((got.double() - ref).abs().max()
                           / ref.abs().max())
@@ -775,17 +770,9 @@ def phase5d_precision(codes_np, q, lambda_J, reps=5, seed=SEED):
             busy = profile_device_time(
                 "phase 5d {} value+grad".format(name),
                 lambda: vg(params, c, w), host_ops=False)
-            k5 = k_limb.limb_mm.launches - k5_before
-            out[name] = (errs[0], errs[1], ms,
-                         busy and busy["busy_s"] * 1e3, k5)
-            if name != "tf32" and precision_limbs(name):
-                assert k5 > 0 and busy is not None, (name, k5)
-                gemms = [k for k in busy["kernels"] if is_library_gemm(k)]
-                assert not gemms, (name, gemms)
-                assert any(KERNEL_SYMBOLS["K5"] in k
-                           for k in busy["kernels"]), (name, busy["kernels"])
-            else:
-                assert k5 == 0, (name, k5)
+            assert busy is not None, name
+            gemms = sorted(k for k in busy["kernels"] if is_library_gemm(k))
+            out[name] = (errs[0], errs[1], ms, busy["busy_s"] * 1e3, gemms)
             if name in ("highest", "high"):
                 # the same bits with the global TF32 flag set
                 tf32(True)
@@ -802,17 +789,17 @@ def phase5d_precision(codes_np, q, lambda_J, reps=5, seed=SEED):
     log("phase 5d precision at N={} L={} (J ~ N(0, 0.05^2)), max error "
         "against float64 relative to the largest value, logits / dJh, and "
         "ms per value+grad (CUDA events; device busy under the profiler), "
-        "K5 launches per name: {}; highest and high bitwise equal with the "
-        "global TF32 flag set and unset; high and default launch no library "
-        "GEMM".format(n, L, json.dumps(
+        "library GEMMs per name: {}; highest and high bitwise equal with "
+        "the global TF32 flag set and unset; high and default take their "
+        "limb passes as the library's bf16 GEMMs".format(n, L, json.dumps(
             {k: {"logits": v[0], "dJh": v[1], "vg_ms": v[2],
-                 "vg_busy_ms": v[3], "k5_launches": v[4]}
+                 "vg_busy_ms": v[3], "library_gemms": v[4]}
              for k, v in out.items()})))
-    log("phase 5d value+grad device busy ms, K5 against the route before it "
-        "(torch.mm limb passes; {} at these shapes): high {} ({}), default "
-        "{} ({})".format(LIMB_ROUTE_CARD, out["high"][3],
-                         LIMB_ROUTE_BUSY_MS["high"], out["default"][3],
-                         LIMB_ROUTE_BUSY_MS["default"]))
+    for name in PRECISIONS:
+        if precision_limbs(name):
+            assert out[name][4], (name, out[name][4])
+            assert not set(out[name][4]) & set(out["highest"][4]), (
+                name, out[name][4], out["highest"][4])
     assert max(out["high"][:2]) <= 1e-5, out["high"]
     # the unstructured names take the structured names' route
     for other, base in (("highest_unstructured", "highest"),
@@ -859,7 +846,7 @@ def allocations_at_peak(top=12):
 def peak_memory_sweep():
     """`python3 chip_smoke.py --peak-memory`: the peak device memory of
     every fit route (parity LBFGS, Adam with and without the fused
-    epilogue, FISTA, balanced LBFGS ("high": K5's products), the
+    epilogue, FISTA, balanced LBFGS ("high": bf16 limb passes), the
     asymmetric Adam and per-site LBFGS fits, the latter at "highest" and
     "high") at the
     phase-5 shape (N=16384, L=160) and at L=400 (N=2048), then of the
@@ -882,7 +869,7 @@ def peak_memory_sweep():
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip())
-    _build.build_all(["seqdot", "limb_mm", "seqdot_host"])
+    _build.build_all(["seqdot", "seqdot_host"])
     over = []
 
     def measure(name, par, L, n, cfg):
@@ -3063,8 +3050,7 @@ def phase12(tmp, a2m, focus_seq, full_state, stage_incfg, lambda_J, rows):
 KERNEL_SYMBOLS = {"K1": "neighbor_counts_kernel",
                   "K2": "_adam_update_kernel",
                   "K3": "_adam_update_presym_kernel",
-                  "K4": "seq_dots_kernel",
-                  "K5": "limb_mm_kernel"}
+                  "K4": "seq_dots_kernel"}
 # seconds the command may run before the phase fails
 PHASE13_RUN_S = 600
 
@@ -3881,9 +3867,7 @@ def phase15_check(records, kind):
 def phase15(dev, kind):
     """bench_torch.py --all (its main()) in this process on the card, at
     bench.py's shapes, with every kernel count set to 0 just before and
-    read just after: K1 and K4 must launch, and K5 in each float32
-    "default" LBFGS record (bench_lbfgs, bench_asym_lbfgs). Its stdout's
-    records are
+    read just after: K1 and K4 must launch. Its stdout's records are
     checked (phase15_check) and printed one per line. Then, after the
     count is read, K1 alone on the bench_reweighting record's codes (CUDA
     events). Returns (seconds of the run, its launches)."""
@@ -3897,29 +3881,10 @@ def phase15(dev, kind):
         _codes_tensor, _identity_count_threshold, _neighbor_counts,
     )
 
-    from evcouplings_torch.kernels import limb_mm as k_limb
-
-    # K5's launches in each secondary record (the float32 "default" LBFGS
-    # records take the limb route)
-    k5_by_record = {}
-
-    def tally(fn):
-        def call(shapes, device):
-            before = k_limb.limb_mm.launches
-            out = fn(shapes, device)
-            k5_by_record[fn.__name__] = k_limb.limb_mm.launches - before
-            return out
-        return call
-
     stdout = io.StringIO()
-    shipped = bench_torch.SECONDARIES
-    bench_torch.SECONDARIES = tuple(tally(fn) for fn in shipped)
     t = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(stdout):
-            rc, launches = counted(lambda: bench_torch.main(["--all"]))
-    finally:
-        bench_torch.SECONDARIES = shipped
+    with contextlib.redirect_stdout(stdout):
+        rc, launches = counted(lambda: bench_torch.main(["--all"]))
     secs = time.perf_counter() - t
     assert rc == 0, rc
     records = [json.loads(line) for line in stdout.getvalue().splitlines()
@@ -3927,12 +3892,9 @@ def phase15(dev, kind):
     for r in records:
         log("phase 15 record:", json.dumps(r))
     phase15_check(records, kind)
-    log("phase 15 launches of bench_torch.py --all {}; K5 by secondary "
-        "record {}".format(json.dumps(launches), json.dumps(k5_by_record)))
+    log("phase 15 launches of bench_torch.py --all {}".format(
+        json.dumps(launches)))
     assert launches["K1"] > 0 and launches["K4"] > 0, launches
-    assert (k5_by_record["bench_lbfgs"] > 0
-            and k5_by_record["bench_asym_lbfgs"] > 0), k5_by_record
-    launches = dict(launches, K5_by_record=k5_by_record)
 
     shapes = bench_torch.BENCH
     n = shapes.reweight_n
@@ -3944,277 +3906,6 @@ def phase15(dev, kind):
         "{:.4f} ms (CUDA events, mean of 3)".format(n, shapes.l, k1_ms))
     del codes
     return secs, launches
-
-
-# device busy ms of one value+grad in phase 5d (N=16384, L=160) at "high"
-# and "default" on the route before K5 (a torch.mm(..., out_dtype=float32)
-# pass per limb, the partials added), on the card named below
-LIMB_ROUTE_BUSY_MS = {"high": 11.42, "default": 7.76}
-LIMB_ROUTE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
-# K5 against its plain version (kernels/limb_mm.limb_mm_plain, the route
-# the card took before K5: the same limb products as float32 passes summed
-# in another order): within this of the plain result's largest |value|
-K5_PLAIN_REL = 1e-5
-# bf16 tensor-core operations per second (H100 SXM, dense)
-BF16_TC_OPS_PER_S = 989e12
-
-
-def limb_cases(rng, dev, L, B, rows, sites_rows):
-    """K5's products at L sites (q = 21) with B-row blocks, as the port
-    forms them: "grad" dJh += split(r^T) @ [onehot | 1 | 0]
-    (ops/plm.py, the carried layout), "stored" the two-phase layout's
-    product over `rows` rows from the residual store's bf16 limbs,
-    "logits" [onehot | 1 | 0] @ split(J_aug), "logits_t" onehot @
-    split(J^T) (the loss builder and the per-site fit) and "sites_grad"
-    dJ += split(r^T) @ onehot with the per-site fit's unpadded one-hot
-    (ops/plm_sites.py), both over `sites_rows` rows, the per-site fit's
-    block. Returns {name: (limb side
-    maker (limbs -> operand), exact side, out or None, float64 value of
-    the limb side as the product takes it, exact side in float64, depth)}:
-    the product is limb side @ exact side, or exact side @ limb side for
-    the logits forms."""
-    import torch
-
-    from evcouplings_torch.kernels.limb_mm import Split, split_limbs
-    from evcouplings_torch.ops.plm import _augmented_width
-
-    q = 21
-    lq = L * q
-    lq_aug = _augmented_width(lq)
-
-    def onehot(n, width):
-        codes = rng.integers(-1, q, size=(n, L))
-        oh = np.zeros((n, width), np.float32)
-        r, site = np.nonzero(codes >= 0)
-        oh[r, site * q + codes[r, site]] = 1.0
-        if width > lq:
-            oh[:, lq] = 1.0
-        return torch.as_tensor(oh, device=dev).to(torch.bfloat16)
-
-    def f32(shape, scale):
-        # several binades, and exact zeros
-        x = (rng.normal(size=shape) * scale
-             * np.exp2(rng.integers(-6, 6, shape)))
-        x[rng.random(shape) < 0.05] = 0.0
-        return torch.as_tensor(x.astype(np.float32), device=dev)
-
-    cases = {}
-    r = f32((B, lq), 0.1)
-    oh = onehot(B, lq_aug)
-    cases["grad"] = (lambda n: Split(r.T, n), oh, f32((lq, lq_aug), 1.0),
-                     r.T.double(), oh.double(), B)
-    r_all = f32((rows, lq), 0.1)
-    oh_all = onehot(rows, lq_aug)
-    cases["stored"] = (
-        lambda n: tuple(t.T for t in split_limbs(r_all, n)), oh_all, None,
-        r_all.T.double(), oh_all.double(), rows)
-    J = f32((lq_aug, lq), 0.05)
-    cases["logits"] = (lambda n: Split(J, n), oh, None, J.double(),
-                       oh.double(), lq_aug)
-    Jt = f32((lq, lq), 0.05)
-    oh_s = onehot(sites_rows, lq)
-    cases["logits_t"] = (lambda n: Split(Jt.T, n), oh_s, None,
-                         Jt.T.double(), oh_s.double(), lq)
-    r_s = f32((sites_rows, lq), 0.1)
-    cases["sites_grad"] = (lambda n: Split(r_s.T, n), oh_s,
-                           f32((lq, lq), 1.0), r_s.T.double(),
-                           oh_s.double(), sites_rows)
-    return cases
-
-
-def limb_product(k, name, limb, exact, out):
-    """One product of limb_cases by `k` (limb_mm or limb_mm_plain), on a
-    copy of `out`."""
-    out = None if out is None else out.clone()
-    if name.startswith("logits"):
-        return k(exact, limb, out)
-    return k(limb, exact, out)
-
-
-def limb_route_parts(limb, exact, out):
-    """The route before K5 for the carried gradient product, its parts
-    timed apart (CUDA events, mean of 20): the split of r^T into its bf16
-    limbs, the limb passes (torch.mm(..., out_dtype=float32)), and the
-    adds of the passes' (Lq, Lq_aug) float32 partials (each pass's
-    partial into the first, the sum into dJh)."""
-    import torch
-
-    from evcouplings_torch.kernels.limb_mm import split_limbs
-
-    limbs = split_limbs(limb.x, limb.n)
-    partials = [torch.mm(x, exact, out_dtype=torch.float32) for x in limbs]
-    total = torch.empty_like(partials[0])
-    scratch = out.clone()
-
-    def adds():
-        if len(partials) == 1:
-            scratch.add_(partials[0])
-            return
-        torch.add(partials[0], partials[1], out=total)
-        scratch.add_(total)
-
-    parts = {
-        "split": cuda_ms(lambda: split_limbs(limb.x, limb.n), 20),
-        "passes": cuda_ms(lambda: [torch.mm(x, exact,
-                                            out_dtype=torch.float32)
-                                   for x in limbs], 20),
-        "adds": cuda_ms(adds, 20),
-    }
-    del partials, total, scratch
-    return parts
-
-
-def phase3c_limb_mm(rng, dev, shapes=(("main", 160, 512, 512, 2048),
-                                        ("ragged", 7, 100, 300, 100),
-                                        ("wide ragged", 127, 2048, 2048,
-                                         2048),
-                                        ("deep", 160, 512, 16384, 2048))):
-    """K5 against its plain version on the card: every form (limb_cases)
-    at limbs 1 and 2, at the main path's shapes (N=16384, L=160: a block
-    of 512 rows, Lq 3360, Lq_aug 3456; the per-site fit's 2048-row
-    block), a ragged one (L=7: Lq 147, Lq_aug 256, 100-row blocks, 300
-    rows; the per-site fit's one-hot rows of 294 bytes, not 16-byte
-    aligned) and a wide ragged one (L=127: Lq 2667, 2048-row blocks, rows
-    of r and of the per-site one-hot not 16-byte aligned) whose grids are
-    wide enough for two warpgroups per block in every form. Together they
-    run every kernel instantiation (form, limbs, warpgroups per block:
-    kernels/limb_mm.instantiation), which is asserted, so each one the
-    main path can pick is held to its plain version here. Each K5 result
-    within K5_PLAIN_REL of the plain version's
-    largest |value|, within the limbs' bound of float64 elementwise (limb
-    split 2^-8 for one limb, 2^-17 for two, of sum |a||b|, plus float32
-    accumulation over depth + limbs terms at twice the IEEE unit, as the
-    tensor cores need not round each add as IEEE does), and bitwise equal
-    over two calls. "deep" is the two-phase layout's product over all
-    16384 rows: two float32 sums of 16384 terms in other orders, so K5
-    and the plain version are each held to that float64 bound and to
-    each other within twice it, not to K5_PLAIN_REL. At the main and deep
-    shapes each form is timed (CUDA events) beside the plain version,
-    which is the route the card took before K5 (a split, one
-    torch.mm(..., out_dtype=float32) pass per limb, the adds) and so also
-    its library yardstick: library_ms is that same measurement. Returns
-    K5's row of the kernels line: the gradient form at two limbs
-    ("high"), with every timed form's numbers under "forms"."""
-    import torch
-
-    from evcouplings_torch.kernels import limb_mm as k_limb
-
-    forms = {}
-    worst = {"plain_rel": 0.0, "f64_rel": {1: 0.0, 2: 0.0}}
-    covered = {}
-    for label, L, B, rows, sites_rows in shapes:
-        cases = limb_cases(rng, dev, L, B, rows, sites_rows)
-        for name, (make, exact, out, a64, b64, depth) in cases.items():
-            if label == "deep" and name != "stored":
-                continue
-            logits = name.startswith("logits")
-            want64 = b64 @ a64 if logits else a64 @ b64
-            absolute = (b64 @ a64.abs()) if logits else (a64.abs() @ b64)
-            if out is not None:
-                want64 = want64 + out.double()
-                absolute = absolute + out.double().abs()
-            for limbs in (1, 2):
-                limb = make(limbs)
-                got = limb_product(k_limb.limb_mm, name, limb, exact, out)
-                again = limb_product(k_limb.limb_mm, name, limb, exact, out)
-                want = limb_product(k_limb.limb_mm_plain, name, limb, exact,
-                                    out)
-                torch.cuda.synchronize()
-                assert torch.equal(got, again), (label, name, limbs)
-                covered.setdefault(
-                    k_limb.instantiation(*((exact, limb, got) if logits
-                                           else (limb, exact, got))),
-                    "{} {}".format(label, name))
-                scale = float(want.abs().max())
-                err = float((got - want).abs().max())
-                plain_rel = err / scale
-                limb_rel = 2.0 ** -8 if limbs == 1 else 2.0 ** -17
-                bound = (limb_rel + 2 * (depth + limbs) * 2.0 ** -24
-                         ) * absolute
-                excess = float(((got.double() - want64).abs() - bound).max())
-                assert excess <= 0.0, (label, name, limbs, excess)
-                if label == "deep":
-                    plain_excess = float(
-                        ((want.double() - want64).abs() - bound).max())
-                    apart = float(((got.double() - want.double()).abs()
-                                   - 2 * bound).max())
-                    assert plain_excess <= 0.0 and apart <= 0.0, (
-                        label, name, limbs, plain_excess, apart)
-                else:
-                    assert plain_rel <= K5_PLAIN_REL, (label, name, limbs,
-                                                       plain_rel)
-                f64_rel = float((got.double() - want64).abs().max()
-                                / want64.abs().max())
-                plain_f64_rel = float((want.double() - want64).abs().max()
-                                      / want64.abs().max())
-                if label != "deep":
-                    worst["plain_rel"] = max(worst["plain_rel"], plain_rel)
-                worst["f64_rel"][limbs] = max(worst["f64_rel"][limbs],
-                                              f64_rel)
-                entry = {"max_abs_err": err, "plain_rel": plain_rel,
-                         "f64_rel": f64_rel, "plain_f64_rel": plain_f64_rel}
-                if label in ("main", "deep"):
-                    m, n = got.shape
-                    a_bytes = (4 if not isinstance(limb, tuple)
-                               else 2 * limbs) * a64.numel()
-                    nbytes = (a_bytes + 2 * exact.numel()
-                              + (8 if out is not None else 4) * m * n)
-                    ops = 2.0 * m * n * depth * limbs
-                    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                    ops_ms = ops / BF16_TC_OPS_PER_S * 1e3
-                    # timed into one scratch output (no copy per call)
-                    scratch = None if out is None else out.clone()
-                    reps = 3 if name == "stored" else 20
-
-                    def call(fn):
-                        return (fn(exact, limb, None) if logits
-                                else fn(limb, exact, scratch))
-
-                    plain_ms = cuda_ms(lambda: call(k_limb.limb_mm_plain),
-                                       reps)
-                    entry.update(
-                        ms=cuda_ms(lambda: call(k_limb.limb_mm), reps),
-                        plain_ms=plain_ms, library_ms=plain_ms,
-                        bound_ms=max(bytes_ms, ops_ms),
-                        bound_by="bytes" if bytes_ms >= ops_ms
-                        else "operations", shape=[m, n, depth])
-                    del scratch
-                if label == "main" and name == "grad":
-                    entry["route_parts_ms"] = limb_route_parts(limb, exact,
-                                                               out)
-                forms["{} {} limbs={}".format(label, name, limbs)] = entry
-                del got, again, want
-            del want64, absolute
-        del cases
-        torch.cuda.empty_cache()
-    for key, e in forms.items():
-        log("phase 3c K5 {}: {}".format(key, json.dumps(e)))
-    every = {(form, limbs, wg) for form in range(4) for limbs in (1, 2)
-             for wg in (1, 2)}
-    log("phase 3c K5 instantiations (form, limbs, warpgroups) and the "
-        "first case that ran each: {}".format(
-            {str(k): v for k, v in sorted(covered.items())}))
-    assert set(covered) == every, sorted(every - set(covered))
-    log("phase 3c K5: every form within {} of its plain version (worst "
-        "{:.3e}; the deep two-phase product both within the float64 "
-        "bound), within the limbs' bound of float64 (worst relative to "
-        "the largest value: 1 limb {:.3e}, 2 limbs {:.3e}), two calls "
-        "bitwise equal".format(K5_PLAIN_REL, worst["plain_rel"],
-                               worst["f64_rel"][1], worst["f64_rel"][2]))
-    main = forms["main grad limbs=2"]
-    return dict(
-        name='K5 bf16-limb product ("high"/"default" one-hot GEMMs)',
-        route="cuda", source="evcouplings_torch/csrc/limb_mm.cu",
-        replaces="evcouplings_tpu/ops/plm.py:140-185 (the _PrecTriple / "
-                 "_precision limb products inside XLA's dot, no Pallas "
-                 "kernel)",
-        max_abs_err=main["max_abs_err"], ms=main["ms"],
-        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"], library_ms=main["library_ms"],
-        max_plain_rel=worst["plain_rel"],
-        max_f64_rel={str(k): v for k, v in worst["f64_rel"].items()},
-        forms={k: v for k, v in forms.items()
-               if k.startswith(("main", "deep"))})
 
 
 def phase3d_block_epilogue(dev, B=8192, L=160, q=21, reps=20):
@@ -4356,7 +4047,7 @@ def main():
     from evcouplings_torch.couplings.model import CouplingsModel
     from evcouplings_torch.kernels import _build
     from evcouplings_torch.kernels import adam_update as k_adam
-    from evcouplings_torch.kernels import limb_mm as k_limb
+    from evcouplings_torch.kernels import block_epilogue as k_epilogue
     from evcouplings_torch.kernels import reweight as k_reweight
     from evcouplings_torch.kernels import seqdot as k_seqdot
     from evcouplings_torch.ops.plm import (
@@ -4378,7 +4069,7 @@ def main():
 
     # ---- phase 1: build every native source, one compiler each, at once
     t = time.perf_counter()
-    _build.build_all(["reweight", "seqdot", "limb_mm", "block_epilogue",
+    _build.build_all(["reweight", "seqdot", "block_epilogue",
                       "seqdot_host", "fasta_io", "stockholm_io"])
     log("phase 1 build: {:.1f} s (nvcc/cc, in parallel)".format(
         time.perf_counter() - t))
@@ -4557,12 +4248,6 @@ def main():
         bytes_bound_ms=bytes_bound)
     del x, y, xc, yc, batch
 
-    # ---- phase 3c: K5 against its plain version and float64, every form
-    # at limbs 1 and 2, main-path, ragged and unaligned shapes
-    t = time.perf_counter()
-    rows["K5"] = phase3c_limb_mm(np.random.default_rng(SEED + 3), dev)
-    log("phase 3c took {:.1f} s".format(time.perf_counter() - t))
-
     # ---- phase 3d: K6 against float64, timed at the production block
     k6_row = phase3d_block_epilogue(dev)
 
@@ -4657,7 +4342,7 @@ def main():
                   lambda_J=0.01 * 20 * 159)
     for counter in (k_reweight.neighbor_counts, k_seqdot.sequential_dots,
                     k_adam.fused_adam_update_cuda,
-                    k_adam.fused_adam_update_presym_cuda, k_limb.limb_mm):
+                    k_adam.fused_adam_update_presym_cuda):
         counter.launches = 0
     k_seqdot.sequential_dots.chains = 0
     modes = (
@@ -4667,16 +4352,16 @@ def main():
         ("production", dict(iterations=20, solver="adam",
                             compute_dtype="bfloat16", fused_update="on")),
         # the couplings stage's "balanced" mode: float32, "high" products
-        # (two bf16 limbs of the float32 operand of the one-hot GEMMs, K5)
+        # (two bf16 limbs of the float32 operand of the one-hot GEMMs, one
+        # cuBLAS pass per limb)
         ("balanced", dict(iterations=5, solver="lbfgs",
                           compute_dtype="float32", matmul_precision="high")),
     )
-    k4_by_mode = {}
-    k5_by_mode = {}
+    counters = dict(kernel_counts(), K6=k_epilogue.block_epilogue)
+    by_mode = {}
     for mode, kw in modes:
         table = []
-        k4_before = k_seqdot.sequential_dots.launches
-        k5_before = k_limb.limb_mm.launches
+        before = {k: c.launches for k, c in counters.items()}
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = run_plm(a2m, os.path.join(tmp, mode + "_ECs.txt"),
@@ -4684,8 +4369,8 @@ def main():
                       callback=table.append, **common, **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        k4_by_mode[mode] = k_seqdot.sequential_dots.launches - k4_before
-        k5_by_mode[mode] = k_limb.limb_mm.launches - k5_before
+        by_mode[mode] = {k: c.launches - before[k]
+                         for k, c in counters.items()}
         fx = [r["fx"] for r in table]
         assert len(fx) == kw["iterations"], (mode, len(fx))
         assert np.all(np.isfinite(fx)), (mode, fx)
@@ -4711,21 +4396,19 @@ def main():
         "K2": k_adam.fused_adam_update_cuda.launches,
         "K3": k_adam.fused_adam_update_presym_cuda.launches,
         "K4": k_seqdot.sequential_dots.launches,
-        "K5": k_limb.limb_mm.launches,
     }
     log("phase 5 launches on the main path:", json.dumps(launches))
-    for k in ("K1", "K2", "K4", "K5"):
+    for k in ("K1", "K2", "K4"):
         assert launches[k] > 0, (k, launches)
-    # the LBFGS dot per backend on the card: K4 in parity mode only; the
-    # balanced fit ("high") takes torch.dot
-    log("phase 5 K4 launches by mode: {}".format(json.dumps(k4_by_mode)))
-    assert k4_by_mode["parity"] > 0 and k4_by_mode["balanced"] == 0, \
-        k4_by_mode
-    # K5 takes the balanced fit's one-hot products, and no other mode's
-    log("phase 5 K5 launches by mode: {}".format(json.dumps(k5_by_mode)))
-    assert (k5_by_mode["balanced"] > 0 and k5_by_mode["parity"] == 0
-            and k5_by_mode["production"] == 0), k5_by_mode
-    rows["K5"]["launches_by_mode"] = k5_by_mode
+    # hand-written kernel launches by mode. The LBFGS dot per backend on
+    # the card: K4 in parity mode only; the balanced fit ("high") takes
+    # torch.dot, and its one-hot products and block epilogue take no
+    # hand-written kernel (its limb passes are cuBLAS's bf16 GEMMs)
+    log("phase 5 hand-written kernel launches by mode: {}".format(
+        json.dumps(by_mode)))
+    assert by_mode["parity"]["K4"] > 0, by_mode
+    assert all(v == 0 for k, v in by_mode["balanced"].items()
+               if k != "K1"), by_mode
 
     # ---- phase 5b: where the time goes: one more fit of each mode under
     # torch.profiler; device time by kernel and the device's busy share of
@@ -4758,9 +4441,7 @@ def main():
 
     # ---- phase 5d: the precision names against float64 on one evaluation
     # at full width, beside the TF32 route "high" took before
-    rows["K5"]["precision_5d_launches"] = {
-        name: v[4] for name, v in phase5d_precision(
-            codes_np, 21, common["lambda_J"]).items()}
+    phase5d_precision(codes_np, 21, common["lambda_J"])
 
     # ---- phase 6: the pipeline, through the entry point users call:
     # execute_wrapped with stages [align, couplings] (align `existing`,
@@ -5043,7 +4724,6 @@ def main():
     log("phase 15 bench_torch.py --all took {:.1f} s; phase 15 {:.1f} "
         "s".format(bench_secs, time.perf_counter() - t15))
 
-    rows["K5"]["bench_record_launches"] = phase15_launches["K5_by_record"]
     for k, row in rows.items():
         row["bench_launches"] = phase15_launches[k]
         row["examples_launches"] = sum(
@@ -5059,8 +4739,8 @@ def main():
         row["app_job_launches"] = phase13_launches[k]
     for item in sorted(not_produced):
         log("phase 6 not produced:", item)
-    log(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4",
-                                                  "K5")] + [k6_row]}))
+    log(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4")]
+                    + [k6_row]}))
     log(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -36,13 +36,14 @@ the parity mode: IEEE float32 products. "high" and "default" are the JAX
 package's definitions of those names, in bf16 limbs
 (_device.precision_limbs): on a CUDA device the float32 operand of each
 one-hot product (the couplings in the logits product, the residual in
-the gradient product) is taken in 2 or 1 bf16 limbs against the
-exactly-bf16 one-hot by K5 (kernels/limb_mm.py), one launch per product
-that splits the operand as it loads it, sums every limb pass in one
-float32 accumulator and adds the gradient block's product into dJh in
-place (_limb_operand, _mm). On the CPU these products stay exact float32, as
-XLA-CPU ignores the precision in the JAX package. The per-site softmax
-sums and the weighted sums are float32 reductions at every precision.
+the gradient product) is split into 2 or 1 bf16 limbs, each limb runs
+one cuBLAS pass against the exactly-bf16 one-hot (torch.mm(...,
+out_dtype=float32)), and the passes are summed in float32, largest limb
+first (_limb_operand, _mm). The couplings are split once per evaluation,
+the residual once per row block. On the CPU these products stay exact
+float32, as XLA-CPU ignores the precision in the JAX package. The
+per-site softmax sums and the weighted sums are float32 reductions at
+every precision.
 dtype "bfloat16" is the production mode: bf16 operands, with float32
 outputs on the gradient products (torch.mm(..., out_dtype=float32) on the
 card; the CPU upcasts the operands instead), while the logits product
@@ -82,9 +83,6 @@ from evcouplings_torch._device import (
 )
 from evcouplings_torch.kernels.block_epilogue import (
     block_epilogue, block_epilogue_plain, fuses_epilogue,
-)
-from evcouplings_torch.kernels.limb_mm import (
-    Split, is_limbs, limb_mm, split_limbs as _split_limbs,
 )
 from evcouplings_torch.kernels.seqdot import sequential_dot, sequential_dots
 from evcouplings_torch.ops.encode import one_hot, pad_rows, unflatten_J
@@ -172,6 +170,19 @@ def _mm_acc(a, b, acc):
     return a.to(acc) @ b.to(acc)
 
 
+def _split_limbs(x, n):
+    """n bfloat16 limbs of a float32 tensor, largest first: the first is x
+    rounded to bf16, each next one what the limbs before it leave of x,
+    rounded to bf16 (that rest is exact in float32). Two limbs hold x to
+    within 2^-17 of it, relative; three hold it exactly."""
+    limbs = [x.to(torch.bfloat16)]
+    rest = x
+    for _ in range(n - 1):
+        rest = rest - limbs[-1]
+        limbs.append(rest.to(torch.bfloat16))
+    return tuple(limbs)
+
+
 def _takes_limbs(dtype, limbs, device):
     """Whether a fit's one-hot products split their float32 operand into
     `limbs` bf16 limbs (precision_limbs of the fit's precision): at
@@ -183,10 +194,11 @@ def _takes_limbs(dtype, limbs, device):
 
 
 def _limb_operand(x, limbs):
-    """The float32 operand x of a one-hot product: x to be taken in
-    `limbs` bf16 limbs (a Split, which the product splits as it loads
-    it) where the product takes them (_takes_limbs), else x itself."""
-    return Split(x, limbs) if _takes_limbs(x.dtype, limbs, x.device) else x
+    """The float32 operand x of a one-hot product: the tuple of its bf16
+    limbs where the product takes them (_takes_limbs; _mm runs one pass
+    per limb), else x itself."""
+    return _split_limbs(x, limbs) if _takes_limbs(
+        x.dtype, limbs, x.device) else x
 
 
 def _exact_dtype(dtype, limbs, device):
@@ -199,23 +211,26 @@ def _exact_dtype(dtype, limbs, device):
 def _mm(a, b, out, into=None):
     """a @ b with the output in `out` (_mm_acc); with `into`, the product
     is added into that tensor in place and it is returned. Where one
-    operand is a limb side (a Split from _limb_operand, or a tuple of
-    stored bf16 limbs), the other is exactly bf16 (a one-hot, cast to
-    bf16 if it is not) and the product is kernels.limb_mm: on a CUDA
-    device one K5 launch, every limb pass in one float32 accumulator per
-    output element, added into `into` in its epilogue; the output is
-    then float32."""
-    if is_limbs(a) or is_limbs(b):
-        a = a if is_limbs(a) else a.to(torch.bfloat16)
-        b = b if is_limbs(b) else b.to(torch.bfloat16)
-        return limb_mm(a, b, into)
-    p = _mm_acc(a, b, out)
+    operand is a tuple of bf16 limbs (_limb_operand), the other is exactly
+    bf16 (a one-hot, cast to bf16 if it is not) and the product is one
+    float32 pass per limb (_mm_acc), largest limb first, each added to the
+    sum of those before; the output is then float32, and the sum is added
+    into `into` after the last pass."""
+    if isinstance(a, tuple) or isinstance(b, tuple):
+        a = a if isinstance(a, tuple) else (a.to(torch.bfloat16),)
+        b = b if isinstance(b, tuple) else (b.to(torch.bfloat16),)
+        p = None
+        for x in a:
+            for y in b:
+                t = _mm_acc(x, y, torch.float32)
+                p = t if p is None else p.add_(t)
+    else:
+        p = _mm_acc(a, b, out)
     return p if into is None else into.add_(p)
 
 
 def _transpose(x):
-    """x.T (of a tensor or a Split), or the transposes of a tuple of
-    limbs."""
+    """x.T, or the transposes of a tuple of limbs."""
     return tuple(t.T for t in x) if isinstance(x, tuple) else x.T
 
 
@@ -293,7 +308,7 @@ def _block_nll_residual(J_aug, oh_aug, c, w, L, q, acc):
     """(block NLL contribution, residual r) for one row block by the plain
     route (block_epilogue_plain after the logits product).
 
-    J_aug: the augmented couplings, or a Split of them (_limb_operand);
+    J_aug: the augmented couplings, or their limbs (_limb_operand);
     oh_aug: (B, Lq_aug) augmented one-hot of codes c (bf16 beside limbs);
     w already in the compute dtype."""
     logits = _mm(oh_aug, J_aug, w.dtype)
@@ -440,10 +455,12 @@ _PEAK_ARRAYS = {   # (fit, solver): (arrays, arrays per history pair)
 # logits alone, and the estimate keeps the plain route's count for both
 _BLOCK_TEMPORARIES = 5
 # what the limb route ("high"/"default" with float32 compute on a CUDA
-# device) adds: K5 splits its float32 operand as it loads it and adds the
-# carried gradient into dJh in place, so nothing in the carried layout;
-# in the two-phase layouts, (block, width) temporaries of the residual's
-# split into the store's limbs (the limbs and the float32 rest)
+# device) adds in either layout: (Lq, Lq_aug) arrays, the couplings' bf16
+# limbs, held for the whole evaluation, and the float32 rest of their
+# split; and (block, Lq) temporaries, the residual's bf16 limbs and the
+# float32 rest of its split (per block in the carried layout, at the
+# store's rows in the two-phase ones)
+_LIMB_ARRAYS = 2
 _LIMB_TEMPORARIES = 2
 # the caching allocator's reserve over what a fit allocates: 1.01-1.37 in
 # chip_smoke.py --peak-memory, the most where differently sized row
@@ -460,19 +477,21 @@ def estimate_fit_hbm_bytes(n, l, q, cfg, parametrization="symmetric",
     ((l_loc q, Lq_aug) in the asymmetric fit) beside the rows' working
     set of the gradient layout: the two-phase layout's resident one-hot
     and residuals plus a block's temporaries, or the carried layout's
-    block temporaries; then the codes, the limb route's temporaries
-    (_LIMB_TEMPORARIES, counted wherever a float32 fit runs at "high" or
-    "default" in a two-phase layout), and 35% for the allocator. The counts are the port's,
-    read off the card's allocator: they exceed the JAX package's (an eager step keeps its inputs while it builds its
-    outputs, where XLA reuses buffers). On an NVIDIA H100 80GB HBM3 at
-    700 W, `python3 chip_smoke.py --peak-memory` found every fit route's
-    reserved peak (parity and per-site LBFGS, Adam with and without the
-    fused epilogue, FISTA, asymmetric Adam; L=160 with N=16384 and L=400
-    with N=2048) at 0.68-0.91 of this estimate, and near the router's
-    limit on that card (N=16384) the production fit's at L=1500 (an
-    estimate of 0.9 x the budget) at 0.77 and asymmetric Adam's at L=1980
-    (an estimate of the budget) at 0.88; chip_smoke.py's phase 5c holds
-    the main path's fits to it on every run.
+    block temporaries; then the codes, the limb route's arrays and
+    temporaries (_LIMB_ARRAYS, _LIMB_TEMPORARIES, counted wherever a
+    float32 fit runs at "high" or "default"), and 35% for the allocator.
+    The counts are the port's, read off the card's allocator: they exceed
+    the JAX package's (an eager step keeps its inputs while it builds
+    its outputs, where XLA reuses buffers). On an NVIDIA H100 80GB HBM3
+    at 700 W, `python3 chip_smoke.py --peak-memory` found every fit
+    route's reserved peak (parity, balanced and per-site LBFGS, Adam with
+    and without the fused epilogue, FISTA, asymmetric Adam; L=160 with
+    N=16384 and L=400 with N=2048) at 0.66-0.93 of this estimate (the
+    balanced fits 0.73-0.80), and near the router's limit on that card
+    (N=16384) the production fit's at L=1500 (an estimate of 0.9 x the
+    budget) at 0.77 and asymmetric Adam's at L=1980 (an estimate of the
+    budget) at 0.88; chip_smoke.py's phase 5c holds the main path's fits
+    to it on every run.
     """
     master = 8 if cfg.dtype == "float64" else 4
     comp = {"bfloat16": 2, "float64": 8}.get(cfg.dtype, 4)
@@ -486,8 +505,7 @@ def estimate_fit_hbm_bytes(n, l, q, cfg, parametrization="symmetric",
         l_loc = -(-l // max(1, n_model_shards))
         key = ("asymmetric", cfg.solver)
         d = l_loc * q * lq_aug
-        two_phase = cfg.grad_layout == "two_phase"
-        if two_phase:
+        if cfg.grad_layout == "two_phase":
             rows = n_loc * (lq + l_loc * q) * comp
         else:
             rows = _BLOCK_TEMPORARIES * block * lq_aug * comp
@@ -498,8 +516,7 @@ def estimate_fit_hbm_bytes(n, l, q, cfg, parametrization="symmetric",
         d = lq * lq_aug
         layout = _resolve_grad_layout(cfg, _compute_dtype(cfg.dtype),
                                       n_loc, lq_aug)
-        two_phase = layout == "two_phase"
-        if two_phase:
+        if layout == "two_phase":
             rows = (n_loc * (lq_aug + lq)
                     + _BLOCK_TEMPORARIES * block * lq) * comp
         else:
@@ -507,8 +524,8 @@ def estimate_fit_hbm_bytes(n, l, q, cfg, parametrization="symmetric",
 
     base, per_pair = _PEAK_ARRAYS[key]
     arrays = base + per_pair * cfg.memory_size
-    if (cfg.dtype == "float32" and precision_limbs(cfg.precision)
-            and two_phase):
+    if cfg.dtype == "float32" and precision_limbs(cfg.precision):
+        arrays += _LIMB_ARRAYS
         rows += _LIMB_TEMPORARIES * block * lq * comp
     return int(_ALLOCATOR_SLACK * (arrays * d * master + rows + codes_bytes))
 
@@ -922,8 +939,8 @@ class _ValueGradGraph:
     copies of the graph's outputs: the solver keeps a value and gradient
     across evaluations, which the next replay would overwrite. Each call
     is one "plm.value_grad" span with the count `replayed` (and
-    `epilogue_fused` where the capture took K6), and adds the K5 and K6
-    launches of the capture to their counts, as an eager evaluation
+    `epilogue_fused` where the capture took K6), and adds the K6
+    launches of the capture to their count, as an eager evaluation
     does. The capture launches nothing; take it after an eager
     evaluation of the same fit, which loads the kernels' libraries and
     cuBLAS's handle. release() frees the graph and, with its outputs,
@@ -937,7 +954,7 @@ class _ValueGradGraph:
         self.rows = rows
         self.x = x.clone()
         self.graph = torch.cuda.CUDAGraph()
-        launches = limb_mm.launches, block_epilogue.launches
+        launches = block_epilogue.launches
         stream.wait_stream(torch.cuda.current_stream(device))
         with span("plm.graph_capture"), torch.cuda.stream(stream):
             self.graph.capture_begin(capture_error_mode="thread_local")
@@ -946,9 +963,8 @@ class _ValueGradGraph:
             finally:
                 self.graph.capture_end()
         torch.cuda.current_stream(device).wait_stream(stream)
-        self.k5_launches = limb_mm.launches - launches[0]
-        self.k6_launches = block_epilogue.launches - launches[1]
-        limb_mm.launches, block_epilogue.launches = launches
+        self.k6_launches = block_epilogue.launches - launches
+        block_epilogue.launches = launches
 
     def __call__(self, x, *rows):
         if len(rows) != len(self.rows) or any(
@@ -961,7 +977,6 @@ class _ValueGradGraph:
                 add_counts(epilogue_fused=1)
             self.x.copy_(x)
             self.graph.replay()
-            limb_mm.launches += self.k5_launches
             block_epilogue.launches += self.k6_launches
             return self.value.clone(), self.grad.clone()
 

@@ -83,7 +83,7 @@ def _make_block_residual(L, q, l_loc=None, m_idx=0):
 
     Returns block_residual(J_eff, h_c, rows, wb, oh) -> (nll_b (l_loc,)
     f32, this block's NLL per local site; residual (block, l_loc, q)
-    f32), where J_eff may be given as a Split (ops/plm._limb_operand)."""
+    f32), where J_eff may be given as its limbs (ops/plm._limb_operand)."""
     l_loc = L if l_loc is None else l_loc
     local = slice(m_idx * l_loc, (m_idx + 1) * l_loc)
 
@@ -116,8 +116,8 @@ def _make_local_vg(L, q, cfg, two_phase=False, l_loc=None, m_idx=0,
     otherwise (carried) a one-hot per block and an f32 accumulator. The
     products run at cfg.precision (ops/plm.py, Precision): on a CUDA
     device, "high" and "default" take the float32 operand in bf16 limbs
-    against a bf16 one-hot, one K5 launch per product (kernels/limb_mm.py;
-    the carried gradient added into dJ in place)."""
+    against a bf16 one-hot, one cuBLAS pass per limb (ops/plm._mm; the
+    couplings split once per call, the carried residual once per block)."""
     l_loc = L if l_loc is None else l_loc
     dtype = _compute_dtype(cfg.dtype)
     limbs = precision_limbs(cfg.precision)

@@ -427,16 +427,20 @@ def test_card_lbfgs_takes_k4_only_in_parity(cuda, precision, takes_k4):
     assert (seqdot.sequential_dots.launches > before) == takes_k4
 
 
-def _k5_case(cuda, form, L, B, seed):
-    """(limb side maker, exact side, out or None) of one K5 product at L
-    sites: "grad" dJh += split(r^T) @ [onehot | 1 | 0], "stored" the
-    two-phase product from bf16 limbs, "logits" [onehot | 1 | 0] @
-    split(J_aug), "logits_t" onehot @ split(J^T), "sites_grad" the
-    per-site fit's dJ += split(r^T) @ onehot (unpadded one-hot)."""
-    from evcouplings_torch.kernels.limb_mm import Split, split_limbs
-    from evcouplings_torch.ops.plm import _augmented_width
+def _limb_case(cuda, form, L, B, rng):
+    """One "high"/"default" product at L sites (q = 21) with B rows, as the
+    fits hand it to ops/plm._mm: (float32 operand in the product's
+    orientation, limb side maker (limbs -> tuple of bf16 limbs), exact
+    bf16 side, `into` or None). "grad" dJh += limbs(r^T) @ [onehot | 1 |
+    0], "stored" the two-phase product from the residual store's limbs,
+    "logits" [onehot | 1 | 0] @ limbs(J_aug), "logits_t" onehot @
+    limbs(J)^T, "sites_grad" the per-site fit's dJ += limbs(r^T) @
+    onehot (unpadded one-hot). The product is limb side @ exact side, or
+    exact side @ limb side for the logits forms."""
+    from evcouplings_torch.ops.plm import (
+        _augmented_width, _split_limbs, _transpose,
+    )
 
-    rng = np.random.default_rng(seed)
     q = 21
     lq = L * q
     width = {"grad": _augmented_width(lq), "stored": _augmented_width(lq),
@@ -450,98 +454,77 @@ def _k5_case(cuda, form, L, B, seed):
     oh = torch.as_tensor(oh, device=cuda).to(torch.bfloat16)
 
     def f32(shape, scale):
+        # several binades, and exact zeros
         x = rng.normal(size=shape) * scale * np.exp2(rng.integers(-6, 6,
                                                                   shape))
+        x[rng.random(shape) < 0.05] = 0.0
         return torch.as_tensor(x.astype(np.float32), device=cuda)
 
     if form in ("grad", "sites_grad"):
         r = f32((B, lq), 0.1)
-        return (lambda n: Split(r.T, n)), oh, f32((lq, width), 1.0)
+        return (r.T, lambda n: _split_limbs(r.T, n), oh,
+                f32((lq, width), 1.0))
     if form == "stored":
         r = f32((B, lq), 0.1)
-        return (lambda n: tuple(t.T for t in split_limbs(r, n))), oh, None
+        return r.T, lambda n: _transpose(_split_limbs(r, n)), oh, None
     if form == "logits":
         J = f32((width, lq), 0.05)
-        return (lambda n: Split(J, n)), oh, None
+        return J, lambda n: _split_limbs(J, n), oh, None
     J = f32((lq, lq), 0.05)
-    return (lambda n: Split(J.T, n)), oh, None
+    return J.T, lambda n: _transpose(_split_limbs(J, n)), oh, None
 
 
-K5_FORMS = ("grad", "stored", "logits", "logits_t", "sites_grad")
-# (L, B): the main path's widths with the carried layout's 512-row block
-# and the per-site fit's 2048-row block, and a ragged one
-K5_SHAPES = [(160, 512), (7, 100), (160, 2048)]
+def test_limb_route_matches_float64(cuda):
+    """ops/plm._mm's limb route on the card (one torch.mm(...,
+    out_dtype=float32) pass per bf16 limb, the passes summed largest limb
+    first, the sum added into `into`) in every form the fits take, at
+    L=160 (Lq 3360, Lq_aug 3456) with 512- and 2048-row blocks, at 1 and
+    2 limbs: within float32 accumulation over depth + limbs terms, at
+    twice the IEEE unit (the tensor cores need not round each add as IEEE
+    does), of the float64 sum of the same limb products; within the
+    limbs' split (2^-8 of sum |a||b| for one limb, 2^-17 for two) more of
+    the float64 product of the float32 operand; the same bits on a second
+    call."""
+    from evcouplings_torch.ops.plm import _mm
 
-
-@pytest.mark.parametrize("L,B", K5_SHAPES)
-@pytest.mark.parametrize("limbs", [1, 2])
-@pytest.mark.parametrize("form", K5_FORMS)
-def test_k5_matches_plain_and_is_bitwise_repeatable(cuda, form, limbs, L,
-                                                    B):
-    """K5 against its plain version (the route before it: one
-    torch.mm(..., out_dtype=float32) pass per limb, the passes added) at
-    the main path's widths (L=160: Lq 3360, Lq_aug 3456, 512- and
-    2048-row blocks) and a ragged one (L=7, 100 rows; the per-site
-    one-hot's rows are not 16-byte aligned): within 1e-5 of the plain
-    result's largest |value|, the same bits on a second call, one launch
-    per product."""
-    from evcouplings_torch.kernels import limb_mm as k_limb
-
-    make, exact, out = _k5_case(cuda, form, L, B, seed=limbs + L)
-    limb = make(limbs)
-
-    def run(fn):
-        o = None if out is None else out.clone()
-        return fn(exact, limb, o) if form.startswith("logits") else fn(
-            limb, exact, o)
-
-    before = k_limb.limb_mm.launches
-    got = run(k_limb.limb_mm)
-    again = run(k_limb.limb_mm)
-    assert k_limb.limb_mm.launches == before + 2
-    want = run(k_limb.limb_mm_plain)
-    torch.cuda.synchronize()
-    assert torch.equal(got, again)
-    assert float((got - want).abs().max()) <= 1e-5 * float(
-        want.abs().max())
-
-
-def test_k5_cases_run_every_instantiation(cuda):
-    """The products of test_k5_matches_plain_and_is_bitwise_repeatable
-    run every kernel instantiation (form, limbs, warpgroups per block)
-    that a launch can pick, so each one is held to the plain version."""
-    from evcouplings_torch.kernels import limb_mm as k_limb
-
-    seen = set()
-    for form in K5_FORMS:
-        for L, B in K5_SHAPES:
+    rng = np.random.default_rng(26)
+    for B in (512, 2048):
+        for form in ("grad", "stored", "logits", "logits_t", "sites_grad"):
+            x, make, exact, into = _limb_case(cuda, form, 160, B, rng)
+            logits = form.startswith("logits")
+            ex64 = exact.double()
+            depth = exact.shape[1] if logits else exact.shape[0]
             for limbs in (1, 2):
-                make, exact, out = _k5_case(cuda, form, L, B, seed=0)
-                limb = make(limbs)
-                args = ((exact, limb) if form.startswith("logits")
-                        else (limb, exact))
-                if out is None:
-                    out = k_limb.limb_mm_plain(*args)
-                seen.add(k_limb.instantiation(*args, out))
-    assert seen == {(form, limbs, wg) for form in range(4)
-                    for limbs in (1, 2) for wg in (1, 2)}
+                side = make(limbs)
 
+                def run():
+                    if logits:
+                        return _mm(exact, side, torch.float32)
+                    return _mm(side, exact, torch.float32, into=None
+                               if into is None else into.clone())
 
-def test_k5_refuses_layouts_it_does_not_take(cuda):
-    """On CUDA tensors the wrapper launches K5 or raises: no fallback to
-    the plain version, and no launch counted."""
-    from evcouplings_torch.kernels import limb_mm as k_limb
-
-    r = torch.ones((16, 27), device=cuda)
-    oh = torch.ones((16, 32), dtype=torch.bfloat16, device=cuda)
-    before = k_limb.limb_mm.launches
-    with pytest.raises(ValueError):
-        k_limb.limb_mm(k_limb.Split(r.T.contiguous(), 2), oh)
-    with pytest.raises(ValueError):
-        k_limb.limb_mm(k_limb.Split(r.T, 3), oh)
-    with pytest.raises(ValueError):
-        k_limb.limb_mm(k_limb.Split(r.T, 2), oh.float())
-    assert k_limb.limb_mm.launches == before
+                got, again = run(), run()
+                parts = [t.double() for t in side]
+                terms = [ex64 @ p if logits else p @ ex64 for p in parts]
+                absolute = sum(ex64 @ p.abs() if logits else p.abs() @ ex64
+                               for p in parts)
+                x64 = x.double()
+                exact64 = ex64 @ x64 if logits else x64 @ ex64
+                x_abs = ex64 @ x64.abs() if logits else x64.abs() @ ex64
+                want = sum(terms)
+                if into is not None:
+                    want = want + into.double()
+                    exact64 = exact64 + into.double()
+                    absolute = absolute + into.double().abs()
+                torch.cuda.synchronize()
+                label = (form, B, limbs)
+                assert torch.equal(got, again), label
+                acc_bound = 2 * (depth + limbs) * 2.0 ** -24 * absolute
+                assert bool(((got.double() - want).abs()
+                             <= acc_bound).all()), label
+                split = 2.0 ** -8 if limbs == 1 else 2.0 ** -17
+                assert bool(((got.double() - exact64).abs()
+                             <= acc_bound + split * x_abs).all()), label
 
 
 # (B, L, q): the production block (8192 rows, L = 160, q = 21), and one

@@ -14,7 +14,6 @@ import pytest
 import torch
 
 from evcouplings_torch.kernels.block_epilogue import block_epilogue
-from evcouplings_torch.kernels.limb_mm import limb_mm
 from evcouplings_torch.ops import plm as tp
 
 try:
@@ -344,13 +343,9 @@ def _card_fit_problem(seed=3, N=1500, L=40, q=21):
     return codes.astype(np.int8), rng.random(N) + 0.2, q
 
 
-def _launches():
-    return limb_mm.launches, block_epilogue.launches
-
-
 class _CheckedGraph(tp._ValueGradGraph):
     """The fit's graph, each replay held to an eager evaluation at the same
-    x: the same value and gradient bits, and as many K5 and K6 launches."""
+    x: the same value and gradient bits, and as many K6 launches."""
 
     def __init__(self, vg_flat, x, rows):
         super().__init__(vg_flat, x, rows)
@@ -358,12 +353,12 @@ class _CheckedGraph(tp._ValueGradGraph):
         self.replays = []
 
     def __call__(self, x, *rows):
-        before = _launches()
+        before = block_epilogue.launches
         value, grad = super().__call__(x, *rows)
-        replayed = [b - a for a, b in zip(before, _launches())]
-        before = _launches()
+        replayed = block_epilogue.launches - before
+        before = block_epilogue.launches
         v, g = self.eager(x, *rows)
-        assert [b - a for a, b in zip(before, _launches())] == replayed
+        assert block_epilogue.launches - before == replayed
         assert torch.equal(value, v) and torch.equal(grad, g)
         # every replay reads its own x (no stale static buffer), and what
         # a replay returned is the caller's (the next one leaves it)
@@ -384,8 +379,7 @@ _CARD_LAYOUTS = [("highest", "carried"), ("high", "carried"),
 def test_replayed_value_grad_is_the_eager_bits(cuda, monkeypatch, precision,
                                                layout):
     """Every replay of a 5-iteration LBFGS fit gives the eager evaluation's
-    value and gradient bits at its x, and K5's launch count advances by
-    the eager evaluation's launches."""
+    value and gradient bits at its x; the float32 fit takes no K6."""
     made = []
 
     def checked(*args):
@@ -400,8 +394,7 @@ def test_replayed_value_grad_is_the_eager_bits(cuda, monkeypatch, precision,
     (graph,) = made
     assert len(res.iteration_table) == 5
     assert len(graph.replays) >= 5
-    assert graph.k5_launches == (0 if precision == "highest" else
-                                 (2 * 3 if layout == "carried" else 3 + 1))
+    assert graph.k6_launches == 0
     # the fit released its graph
     assert graph.x is None and graph.grad is None
 
@@ -428,7 +421,7 @@ def test_replayed_bf16_value_grad_is_the_eager_bits(cuda, monkeypatch,
     (graph,) = made
     assert len(res.iteration_table) == 5
     assert len(graph.replays) >= 5
-    assert graph.k5_launches == 0 and graph.k6_launches == 3
+    assert graph.k6_launches == 3
     # the eager first evaluation, and one eager twin per replay besides
     # the replays' own
     assert block_epilogue.launches - before == 3 * (1 + 2 * len(
@@ -440,20 +433,17 @@ def test_replayed_bf16_value_grad_is_the_eager_bits(cuda, monkeypatch,
 @pytest.mark.parametrize("precision,layout", _CARD_LAYOUTS)
 def test_replayed_fit_is_the_eager_fit(cuda, monkeypatch, precision, layout):
     """A 5-iteration LBFGS fit with its value+grad replayed gives the eager
-    fit's iteration table and J/h bits, with as many K5 launches."""
+    fit's iteration table and J/h bits."""
     codes, w, q = _card_fit_problem(seed=4)
     cfg = tp.PlmConfig(max_iter=5, conv_tol=0.0, precision=precision,
                        grad_layout=layout, lambda_J=0.01 * (q - 1) * 39)
 
     def fit():
-        before = limb_mm.launches
-        res = tp.fit_plm(codes, w, q, cfg, device=cuda)
-        return res, limb_mm.launches - before
+        return tp.fit_plm(codes, w, q, cfg, device=cuda)
 
-    replayed, k5_replayed = fit()
+    replayed = fit()
     monkeypatch.setattr(tp, "_replays_value_grad", lambda device, mesh: False)
-    eager, k5_eager = fit()
-    assert k5_replayed == k5_eager
+    eager = fit()
     assert len(eager.iteration_table) == 5
 
     def rows(res):

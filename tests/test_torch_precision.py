@@ -1,15 +1,20 @@
 """The port's matmul precision names against the JAX package's definition
 of them, in bf16 limbs of the float32 operand of the fits' products
-(evcouplings_torch/_device.py, ops/plm.py, Precision): the limb split,
-the limb product against a float64 emulation of its passes, the
-structured names against the unstructured ones, and the builders at
+(evcouplings_torch/_device.py, ops/plm.py, Precision): the limb split;
+the limb product (ops/plm._mm, one float32 pass per limb) against a
+float64 emulation of its passes, bit for bit against the passes summed
+largest limb first, and against the JAX package's own products at those
+names (jnp.dot with the precision pairs of evcouplings_tpu/ops/plm.
+_precision; XLA-CPU forms them in exact float32), in every form the fits
+take (the gradient added into dJh, the stored limbs of the two-phase
+layouts, the logits from J_aug and from J^T), at ragged shapes; the
+structured names against the unstructured ones; and the builders at
 "high" and "default" against the JAX twin on the host, where both
 packages form exact float32 products. The card's limb route is also run
 here by letting the CPU take it (each pass's bf16 products are exact in
-float32 and the passes accumulate in float32, as K5 does on the card,
-kernels/limb_mm.py); the card's own cases are in tests/test_torch_gpu.py.
+float32 and the passes accumulate in float32, as cuBLAS's passes do on
+the card); the card's own cases are in tests/test_torch_gpu.py.
 """
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,14 +35,6 @@ def _f32(rng, shape, scale=1.0):
     x = rng.normal(size=shape) * scale * np.exp2(rng.integers(-6, 6, shape))
     x[rng.random(shape) < 0.05] = 0.0
     return torch.as_tensor(x.astype(np.float32))
-
-
-def _one_hot_rows(rng, n, L, q):
-    codes = rng.integers(-1, q, size=(n, L))
-    oh = np.zeros((n, L, q), np.float32)
-    rows, sites = np.nonzero(codes >= 0)
-    oh[rows, sites, codes[rows, sites]] = 1.0
-    return torch.as_tensor(oh.reshape(n, L * q))
 
 
 def _limbs_f64(limbs):
@@ -76,38 +73,195 @@ def test_limbs_sum_back_to_the_input(seed):
     assert torch.equal(three[0], two[0]) and torch.equal(three[1], two[1])
 
 
-@pytest.mark.parametrize("limbs", [1, 2, 3])
-@pytest.mark.parametrize("side", ["logits", "gradient"])
-def test_limb_product_matches_float64_emulation(limbs, side):
-    """The limb product on CPU tensors against a float64 emulation of the
-    same limb passes: equal within float32 accumulation, |err| <=
-    (K + passes) 2^-24 (|limbs| @ |one-hot|), K the contraction depth."""
-    rng = np.random.default_rng(10 + limbs)
-    n, L, q = 48, 9, 5
-    oh = _one_hot_rows(rng, n, L, q)
-    if side == "logits":            # one-hot @ J, the couplings in limbs
-        x = _f32(rng, (L * q, 33), 0.05)
-        parts = tp._split_limbs(x, limbs)
-        got = tp._mm(oh, parts, torch.float32)
-        terms = [oh.double() @ p for p in _limbs_f64(parts)]
-        absolute = oh.double() @ sum(p.abs() for p in _limbs_f64(parts))
-        depth = L * q
-    else:                           # r^T @ one-hot, the residual in limbs
-        x = _f32(rng, (n, L * q))
-        parts = tp._split_limbs(x.T, limbs)
-        got = tp._mm(parts, oh, torch.float32)
-        terms = [p @ oh.double() for p in _limbs_f64(parts)]
-        absolute = sum(p.abs() for p in _limbs_f64(parts)) @ oh.double()
-        depth = n
+# relative error of the limb split: one bf16 limb (round to nearest
+# even, 8-bit significand) and two
+LIMB_REL = {1: 2.0 ** -8, 2: 2.0 ** -17}
+Q = 21
+# the fits' one-hot products (ops/plm.py, ops/plm_sites.py)
+FORMS = ("grad", "stored", "sites_grad", "logits", "logits_t")
+SHAPES = [(9, 40), (7, 13)]     # (L, block rows); L=7: Lq 147, ragged
+
+
+def _one_hot_rows(rng, n, L, width, q):
+    """(n, width) [one-hot | 1 | 0] of random codes with gaps (-1); the
+    ones column where width > L q."""
+    codes = rng.integers(-1, q, size=(n, L))
+    oh = np.zeros((n, width), np.float32)
+    rows, sites = np.nonzero(codes >= 0)
+    oh[rows, sites * q + codes[rows, sites]] = 1.0
+    if width > L * q:
+        oh[:, L * q] = 1.0
+    return torch.as_tensor(oh)
+
+
+def _form_case(form, L, B, seed, q=Q):
+    """One product of the fits: (the float32 operand as the port lays it
+    out, the exact side as float32, `into` or None, the depth). The
+    product is limbs @ exact, or exact @ limbs for the logits forms
+    (`into` is None there)."""
+    rng = np.random.default_rng(seed)
+    lq = L * q
+    lq_aug = tp._augmented_width(lq)
+
+    def oh(n, width):
+        return _one_hot_rows(rng, n, L, width, q)
+
+    if form == "grad":          # dJh += limbs(r^T) @ [oh | 1 | 0]
+        return (_f32(rng, (B, lq), 0.1).T, oh(B, lq_aug),
+                _f32(rng, (lq, lq_aug)), B)
+    if form == "stored":        # two-phase: the store's limbs of r^T @ oh
+        return _f32(rng, (3 * B, lq), 0.1).T, oh(3 * B, lq_aug), None, 3 * B
+    if form == "sites_grad":    # per-site fit: dJ += limbs(r^T) @ oh
+        return _f32(rng, (B, lq), 0.1).T, oh(B, lq), _f32(rng, (lq, lq)), B
+    if form == "logits":        # [oh | 1 | 0] @ limbs(J_aug)
+        return _f32(rng, (lq_aug, lq), 0.05), oh(B, lq_aug), None, lq_aug
+    assert form == "logits_t"   # oh @ limbs(J)^T
+    return _f32(rng, (lq, lq), 0.05).T, oh(B, lq), None, lq
+
+
+def _limb_side(form, x, n):
+    """The limbs the port hands _mm for a form's float32 operand x: its
+    split where the product takes it (_limb_operand, and _transpose of
+    J's limbs in the per-site fit), the transposes of the residual
+    store's limbs in the two-phase layout (_store_rows, _transpose)."""
+    if form in ("stored", "logits_t"):
+        return tp._transpose(tp._split_limbs(x.T.contiguous(), n))
+    return tp._split_limbs(x, n)
+
+
+def _product(form, side, exact, into=None):
+    """The form's product by ops/plm._mm."""
+    e = exact.to(torch.bfloat16)
+    if form.startswith("logits"):
+        return tp._mm(e, side, torch.float32)
+    return tp._mm(side, e, torch.float32, into=into)
+
+
+# (form, limbs, L, block rows, q): the fits' forms at limbs 1 and 2, and
+# the logits and gradient products at limbs 1 to 3 (three limbs hold the
+# operand exactly)
+_EMULATION_CASES = [
+    pytest.param(form, limbs, 9, 48, 5, id="{}-{}".format(name, limbs))
+    for name, form in (("logits", "logits"), ("gradient", "grad"))
+    for limbs in (1, 2, 3)
+] + [
+    pytest.param(form, limbs, L, B, Q,
+                 id="{}-{}-{}-{}".format(form, limbs, L, B))
+    for form in FORMS for limbs in (1, 2) for L, B in SHAPES
+]
+
+
+@pytest.mark.parametrize("form,limbs,L,B,q", _EMULATION_CASES)
+def test_limb_product_matches_float64_emulation(form, limbs, L, B, q):
+    """The limb product on CPU tensors against the float64 sum of the same
+    limb products: within float32 accumulation, (depth + limbs) 2^-24 of
+    sum |limb| |exact| (plus |into|), and `into` updated in place (the
+    same tensor returned) where it is given; with three limbs, so within
+    the float64 product of the float32 operand."""
+    x, exact, into, depth = _form_case(form, L, B, seed=limbs + 10 * L, q=q)
+    side = _limb_side(form, x, limbs)
+    got = _product(form, side, exact,
+                   None if into is None else into.clone())
+    parts = _limbs_f64(side)
+    ex = exact.double()
+    if form.startswith("logits"):
+        want = sum(ex @ p for p in parts)
+        absolute = ex @ sum(p.abs() for p in parts)
+        exact64 = ex @ x.double()
+    else:
+        want = sum(p @ ex for p in parts)
+        absolute = sum(p.abs() for p in parts) @ ex
+        exact64 = x.double() @ ex
+    if into is not None:
+        want = want + into.double()
+        exact64 = exact64 + into.double()
+        absolute = absolute + into.double().abs()
     assert got.dtype == torch.float32
-    want = sum(terms)
+    assert got.shape == want.shape
     bound = (depth + limbs) * EPS32 * absolute
     assert bool(((got.double() - want).abs() <= bound).all())
     if limbs == 3:
-        # three limbs: the float64 product of the float32 operands
-        exact = (oh.double() @ x.double() if side == "logits"
-                 else x.double().T @ oh.double())
-        assert bool(((got.double() - exact).abs() <= bound).all())
+        assert bool(((got.double() - exact64).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("L,B", SHAPES)
+@pytest.mark.parametrize("limbs", [1, 2])
+@pytest.mark.parametrize("form", FORMS)
+def test_limb_product_is_the_passes_summed_largest_first(form, limbs, L, B):
+    """ops/plm._mm's limb route bit for bit: one float32 product per limb
+    against the exactly-bf16 side (the CPU upcasts, where the card takes
+    torch.mm(..., out_dtype=float32)), each added to the sum of those
+    before it, largest limb first, and that sum added into `into` after
+    the last pass, in place."""
+    x, exact, into, _ = _form_case(form, L, B, seed=limbs + 10 * L + 3)
+    side = _limb_side(form, x, limbs)
+    e = exact.to(torch.bfloat16).float()
+    total = None
+    for limb in side:
+        p = e @ limb.float() if form.startswith("logits") else limb.float() @ e
+        total = p if total is None else total + p
+    target = None if into is None else into.clone()
+    got = _product(form, side, exact, target)
+    if into is None:
+        assert torch.equal(got, total)
+    else:
+        assert got is target
+        assert torch.equal(got, into + total)
+
+
+@pytest.mark.parametrize("L,B", SHAPES)
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("form", FORMS)
+def test_limb_product_matches_jax_at_precision(form, precision, L, B):
+    """The limb product against the JAX package's product at the same
+    precision name (jnp.dot with its _precision pair: the one-hot exact,
+    the float32 operand at HIGH or DEFAULT), which XLA-CPU forms in exact
+    float32: within the limbs' 2^-17 (2 limbs) or 2^-8 (1 limb) of sum
+    |a| |b|, plus float32 accumulation on both sides."""
+    limbs = {"high": 2, "default": 1}[precision]
+    x, exact, into, depth = _form_case(form, L, B, seed=limbs + 10 * L + 1)
+    side = _limb_side(form, x, limbs)
+    got = _product(form, side, exact,
+                   None if into is None else into.clone())
+    got = got.numpy().astype(np.float64)
+    prec = jp._precision(precision)
+    a = x.contiguous().numpy()
+    ex = exact.numpy()
+    if form.startswith("logits"):
+        want = jnp.dot(jnp.asarray(ex), jnp.asarray(a),
+                       precision=prec.exact_lhs)
+        absolute = ex.astype(np.float64) @ np.abs(a.astype(np.float64))
+    else:
+        want = jnp.dot(jnp.asarray(a), jnp.asarray(ex),
+                       precision=prec.exact_rhs)
+        absolute = np.abs(a.astype(np.float64)) @ ex.astype(np.float64)
+    want = np.asarray(want, np.float64)
+    if into is not None:
+        want = want + into.numpy()
+        absolute = absolute + np.abs(into.numpy())
+    bound = (LIMB_REL[limbs] + 2 * (depth + limbs) * EPS32) * absolute
+    assert np.all(np.abs(got - want) <= bound)
+
+
+def test_limb_product_adds_into_in_place():
+    """With `into` the sum of the passes is added into that tensor in
+    place and it is returned; without, the product is a new tensor."""
+    x, exact, into, _ = _form_case("grad", 9, 40, seed=3)
+    side = _limb_side("grad", x, 2)
+    before = into.clone()
+    fresh = _product("grad", side, exact)
+    got = _product("grad", side, exact, into)
+    assert got is into and fresh.data_ptr() != into.data_ptr()
+    assert torch.equal(got, before + fresh)
+
+
+def test_empty_limb_products():
+    oh = torch.zeros((0, 32), dtype=torch.bfloat16)
+    r = torch.zeros((0, 27))
+    side = tp._split_limbs(r.T, 2)
+    assert torch.equal(tp._mm(side, oh, torch.float32,
+                              into=torch.ones(27, 32)), torch.ones(27, 32))
+    assert torch.equal(tp._mm(side, oh, torch.float32), torch.zeros(27, 32))
 
 
 def _twin_problem():
@@ -224,6 +378,71 @@ def test_card_route_against_float64(layout, monkeypatch):
     assert errs["high"] <= 1e-5, errs
     assert errs["default"] <= 1e-2, errs
     assert errs["high"] * 10 <= errs["default"], errs
+
+
+@pytest.mark.parametrize("layout", ["carried", "two_phase"])
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_card_route_splits_couplings_once_per_evaluation(precision, layout,
+                                                         monkeypatch):
+    """On the limb route (let the CPU take it) an evaluation of the
+    value+grad splits J_aug into its limbs once, before its block loop,
+    whatever the number of row blocks, and the residual once per block."""
+    _emulate_card_route(monkeypatch)
+    L, q, codes, weights, params = _twin_problem()
+    lq_aug = tp._augmented_width(L * q)
+    splits = []
+    real = tp._split_limbs
+
+    def spy(x, n):
+        splits.append((tuple(x.shape), n))
+        return real(x, n)
+
+    monkeypatch.setattr(tp, "_split_limbs", spy)
+    args = ({k: torch.as_tensor(v) for k, v in params.items()},
+            torch.as_tensor(codes), torch.as_tensor(weights))
+    limbs = _device.precision_limbs(precision)
+    for block in (8, 16, 64):
+        cfg = tp.PlmConfig(block_size=block, dtype="float32",
+                           precision=precision, grad_layout=layout)
+        vg = tp.make_plm_value_and_grad(L, q, cfg, symmetric_params=True)
+        del splits[:]
+        vg(*args)
+        couplings = [s for s in splits if s[0] == (lq_aug, L * q)]
+        assert couplings == [((lq_aug, L * q), limbs)], (block, splits)
+        assert len(splits) - 1 == len(codes) // block, (block, splits)
+
+
+@pytest.mark.parametrize("two_phase", [False, True])
+def test_per_site_card_route_splits_couplings_once_per_call(two_phase,
+                                                            monkeypatch):
+    """The per-site fit's value+grad on the limb route (let the CPU take
+    it) at "high": J split into its limbs once per call, whatever the
+    number of row blocks, and the residual once per block."""
+    _emulate_card_route(monkeypatch)
+    L, q, codes, weights, params = _twin_problem()
+    lq = L * q
+    splits = []
+    real = tp._split_limbs
+
+    def spy(x, n):
+        splits.append((tuple(x.shape), n))
+        return real(x, n)
+
+    monkeypatch.setattr(tp, "_split_limbs", spy)
+    J = torch.as_tensor(params["J"])
+    h = torch.as_tensor(params["h"])
+    c, w = torch.as_tensor(codes).long(), torch.as_tensor(weights)
+    oh = torch.as_tensor(np.eye(q, dtype=np.float32)[codes].reshape(
+        len(codes), lq)).bfloat16()
+    for block in (8, 16, 64):
+        cfg = tp.PlmConfig(dtype="float32", precision="high",
+                           block_size=block)
+        vg = ts._make_local_vg(L, q, cfg, two_phase=two_phase)
+        del splits[:]
+        vg(J, h, c, w, oh)
+        assert [s for s in splits if s[0] == (lq, lq)] == [((lq, lq), 2)], (
+            block, splits)
+        assert len(splits) - 1 == len(codes) // block, (block, splits)
 
 
 @pytest.mark.parametrize("two_phase", [False, True])

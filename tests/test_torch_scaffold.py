@@ -56,7 +56,6 @@ PORT_MODULES = [
     "evcouplings_torch.fold.tools",
     "evcouplings_torch.kernels._build",
     "evcouplings_torch.kernels.adam_update",
-    "evcouplings_torch.kernels.limb_mm",
     "evcouplings_torch.kernels.reweight",
     "evcouplings_torch.kernels.seqdot",
     "evcouplings_torch.mutate",
@@ -249,9 +248,7 @@ def test_device_codes_take_the_twins_dtype(monkeypatch):
 
 
 def test_cpu_tensors_do_not_count_launches():
-    from evcouplings_torch.kernels import (
-        adam_update, limb_mm, reweight, seqdot,
-    )
+    from evcouplings_torch.kernels import adam_update, reweight, seqdot
     from evcouplings_torch.ops import plm
     from evcouplings_torch.ops.plm_update import (
         fused_adam_update, fused_adam_update_presym,
@@ -260,7 +257,7 @@ def test_cpu_tensors_do_not_count_launches():
 
     counters = (reweight.neighbor_counts, seqdot.sequential_dots,
                 adam_update.fused_adam_update_cuda,
-                adam_update.fused_adam_update_presym_cuda, limb_mm.limb_mm)
+                adam_update.fused_adam_update_presym_cuda)
     before = [c.launches for c in counters]
 
     rng = np.random.default_rng(0)
@@ -272,7 +269,7 @@ def test_cpu_tensors_do_not_count_launches():
                       lambda_j=0.1, lr=0.1)
     fused_adam_update_presym(z, z, z, z, 1.0, 1.0, q=3, lambda_j=0.1,
                              lr=0.1)
-    plm._mm(limb_mm.Split(torch.ones(lq, 4), 2),
+    plm._mm(plm._split_limbs(torch.ones(lq, 4), 2),
             torch.ones(4, lq, dtype=torch.bfloat16), torch.float32,
             into=torch.zeros(lq, lq))
     assert [c.launches for c in counters] == before

@@ -247,14 +247,15 @@ class _FakeStream:
 
 def test_value_grad_graph_bookkeeping(monkeypatch):
     """The graph's wrapper, with CUDA's graph and streams stood in for on
-    the host: the capture's K5 launches are taken back and added again per
+    the host: the capture's K6 launches are taken back and added again per
     replay, each call copies its x into the static buffer, replays once
-    inside one plm.value_grad span counted as a replay, and returns copies
+    inside one plm.value_grad span counted as a replay (and as fused,
+    since the capture took K6), and returns copies
     of the static outputs; a call with other rows raises; release() resets
     the graph and drops the buffers."""
     import contextlib
 
-    from evcouplings_torch.kernels.limb_mm import limb_mm
+    from evcouplings_torch.kernels.block_epilogue import block_epilogue
 
     graphs = []
 
@@ -271,16 +272,16 @@ def test_value_grad_graph_bookkeeping(monkeypatch):
     monkeypatch.setattr(ops_plm, "_CAPTURE_STREAMS", {})
 
     def vg_flat(x, codes, weights):
-        limb_mm.launches += 3
+        block_epilogue.launches += 3
         return (x * weights).sum(), x * codes
 
     rows = (torch.full((4,), 2.0), torch.full((4,), 0.5))
     x0 = torch.zeros(4)
-    before = limb_mm.launches
+    before = block_epilogue.launches
     g = ops_plm._ValueGradGraph(vg_flat, x0, rows)
     (fake,) = graphs
     assert fake.log == [("begin", "thread_local"), ("end",)]
-    assert limb_mm.launches == before and g.k5_launches == 3
+    assert block_epilogue.launches == before and g.k6_launches == 3
     assert g.x is not x0
     x1 = torch.arange(4.0)
     tracing.clear_spans()
@@ -288,9 +289,9 @@ def test_value_grad_graph_bookkeeping(monkeypatch):
         value, grad = g(x1, *rows)
     (rec,) = tracing.span_records()
     assert rec["name"] == "plm.value_grad"
-    assert rec["counts"] == {"replayed": 1}
+    assert rec["counts"] == {"replayed": 1, "epilogue_fused": 1}
     assert fake.log[-1] == ("replay",)
-    assert limb_mm.launches == before + 3
+    assert block_epilogue.launches == before + 3
     assert torch.equal(g.x, x1)
     # copies of the static outputs, which the next replay overwrites
     assert value is not g.value and grad is not g.grad
